@@ -1,23 +1,31 @@
 """pymc_tpu_torch — the PyTorch/CUDA port of pymc_tpu.
 
-The first slice: the radon-GLM main path of `bench.py` — the model graph,
+Two slices so far. The radon-GLM main path of `bench.py`: the model graph,
 Normal and HalfCauchy with the log transform, jittered starting points,
 dual averaging and diagonal Welford adaptation, batched NUTS whose leapfrog
-runs through hand-written CUDA kernels on the card, and R-hat/ESS. The
-package imports torch and never jax; kernels are built at first use, never
-at import.
+runs through hand-written CUDA kernels on the card, and R-hat/ESS. The GP
+path: Gamma, HalfNormal, MvNormal, `gp.Marginal.marginal_likelihood` and
+`gp.Latent.prior` with the ExpQuad kernel algebra, whose covariance is
+factored by a hand-written batched Cholesky kernel on the card. The package
+imports torch and never jax; kernels are built at first use, never at
+import. Entry points run on the card unless `device="cpu"` is asked for.
 
     import pymc_tpu_torch as pm
-    with pm.Model(coords={"g": range(3)}) as model:
-        mu = pm.Normal("mu", 0.0, 5.0)
-        tau = pm.HalfCauchy("tau", 5.0)
-        pm.Normal("y", mu, tau, observed=[1.0, 2.0, 0.5])
-    idata = pm.sample(draws=500, tune=500, chains=4, device="cuda")
+    with pm.Model() as model:
+        ls = pm.Gamma("ls", 2, 1)
+        eta = pm.HalfNormal("eta", 2)
+        gp = pm.gp.Marginal(cov_func=eta**2 * pm.gp.cov.ExpQuad(1, ls=ls))
+        gp.marginal_likelihood("y", X=X, y=y, sigma=pm.HalfNormal("sigma", 1))
+    idata = pm.sample(draws=300, tune=300, chains=64, mass_adapt="pooled")
 """
 
-from .distributions import HalfCauchy, Normal
+from . import gp
+from .distributions import Gamma, HalfCauchy, HalfNormal, MvNormal, Normal
 from .model import Deterministic, Model
 from .sampling.mcmc import sample
 from .stats.convergence import ess, rhat
 
-__all__ = ["Model", "Normal", "HalfCauchy", "Deterministic", "sample", "rhat", "ess"]
+__all__ = [
+    "Model", "Normal", "HalfNormal", "HalfCauchy", "Gamma", "MvNormal", "Deterministic",
+    "gp", "sample", "rhat", "ess",
+]

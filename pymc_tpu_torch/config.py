@@ -3,7 +3,8 @@
 Counterpart of `pymc_tpu/config.py`. The JAX package picks float64 through
 JAX's x64 mode; here the float type follows the device: float64 on the CPU
 (the parity tests compare against the JAX package in x64), float32 on the
-card, where the samplers run.
+card, where the samplers run. The default device is the card: a caller that
+means the CPU says `device="cpu"`.
 """
 
 from __future__ import annotations
@@ -14,19 +15,20 @@ __all__ = ["floatX", "resolve_device"]
 
 
 def floatX(device=None) -> torch.dtype:
-    """Default float type for `device`: float32 on CUDA, float64 elsewhere."""
+    """Default float type for `device` (default: the card): float32 on CUDA,
+    float64 elsewhere."""
     return torch.float32 if resolve_device(device).type == "cuda" else torch.float64
 
 
 def resolve_device(device=None) -> torch.device:
-    """`device` as a torch.device (default: the CPU).
+    """`device` as a torch.device (default: `cuda`, the card).
 
-    Asking for `cuda` where no card is visible raises instead of falling back
-    to the CPU. On the card, float32 matrix products are pinned to full
-    float32 precision (TF32 off), so the card's numbers are comparable with
-    the CPU's at float32 tolerances.
+    Asking for `cuda`, or for nothing, where no card is visible raises; there
+    is no fallback to the CPU. On the card, float32 matrix products are
+    pinned to full float32 precision (TF32 off), so the card's numbers are
+    comparable with the CPU's at float32 tolerances.
     """
-    device = torch.device("cpu" if device is None else device)
+    device = torch.device("cuda" if device is None else device)
     if device.type == "cuda":
         if not torch.cuda.is_available():
             raise RuntimeError(

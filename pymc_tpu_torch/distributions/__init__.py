@@ -1,6 +1,9 @@
-"""Distributions of the PyTorch port (Normal and HalfCauchy so far)."""
+"""Distributions of the PyTorch port."""
 
-from .continuous import HalfCauchy, Normal
+from .continuous import Gamma, HalfCauchy, HalfNormal, Normal
 from .distribution import Continuous, Distribution
+from .multivariate import MvNormal
 
-__all__ = ["Distribution", "Continuous", "Normal", "HalfCauchy"]
+__all__ = [
+    "Distribution", "Continuous", "Normal", "HalfNormal", "HalfCauchy", "Gamma", "MvNormal",
+]

@@ -1,7 +1,9 @@
-"""Continuous univariate distributions: Normal and HalfCauchy.
+"""Continuous univariate distributions: Normal, HalfNormal, HalfCauchy and
+Gamma.
 
 Counterpart of `pymc_tpu/distributions/continuous.py` (Normal :149,
-HalfCauchy :799; reference pymc/distributions/continuous.py:445, :2330).
+HalfNormal :250, HalfCauchy :799, Gamma :830; reference
+pymc/distributions/continuous.py:445, :822, :2330, :2415).
 Densities are elementwise tensor expressions; an invalid parameter gives
 -inf and never raises, and a value outside the support gives -inf.
 """
@@ -12,12 +14,26 @@ import math
 
 import torch
 
-from .dist_math import check_parameters, log_normal
+from ..graph import apply
+from .dist_math import check_parameters, log_normal, logpow
 from .distribution import Continuous, as_param
 
-__all__ = ["Normal", "HalfCauchy"]
+__all__ = ["Normal", "HalfNormal", "HalfCauchy", "Gamma"]
 
 _LOG_2_OVER_PI = math.log(2.0 / math.pi)
+_SQRT_2_OVER_PI = math.sqrt(2.0 / math.pi)
+
+
+def _sigma_tau(sigma, tau):
+    """Resolve the (sigma, tau) alternative parametrization (reference
+    continuous.py get_tau_sigma)."""
+    if sigma is not None and tau is not None:
+        raise ValueError("Can't pass both tau and sigma")
+    if sigma is None and tau is None:
+        return as_param(1.0)
+    if tau is not None:
+        return apply(lambda t: 1.0 / torch.sqrt(t), as_param(tau))
+    return as_param(sigma)
 
 
 class Normal(Continuous):
@@ -37,6 +53,24 @@ class Normal(Continuous):
         return torch.broadcast_to(mu, torch.broadcast_shapes(mu.shape, sigma.shape))
 
 
+class HalfNormal(Continuous):
+    """Reference continuous.py:822."""
+
+    param_names = ("sigma",)
+    support = "positive"
+
+    def __dist_init__(self, sigma=None, tau=None):
+        self.sigma = _sigma_tau(sigma, tau)
+
+    def _logp(self, value, sigma):
+        res = 0.5 * _LOG_2_OVER_PI - torch.log(sigma) - 0.5 * (value / sigma) ** 2
+        res = torch.where(value >= 0, res, -torch.inf)
+        return check_parameters(res, sigma > 0)
+
+    def _support_point(self, sigma):
+        return sigma * _SQRT_2_OVER_PI
+
+
 class HalfCauchy(Continuous):
     """Reference continuous.py:2330."""
 
@@ -54,3 +88,41 @@ class HalfCauchy(Continuous):
 
     def _support_point(self, beta):
         return beta
+
+
+class Gamma(Continuous):
+    """Reference continuous.py:2415; (alpha, beta) or (mu, sigma)."""
+
+    param_names = ("alpha", "beta")
+    support = "positive"
+
+    def __dist_init__(self, alpha=None, beta=None, mu=None, sigma=None):
+        alpha, beta = self._get_alpha_beta(alpha, beta, mu, sigma)
+        self.alpha = as_param(alpha)
+        self.beta = as_param(beta)
+
+    @staticmethod
+    def _get_alpha_beta(alpha, beta, mu, sigma):
+        if alpha is not None and beta is not None:
+            return alpha, beta
+        if mu is not None and sigma is not None:
+            mu, sigma = as_param(mu), as_param(sigma)
+            return (
+                apply(lambda m, s: m**2 / s**2, mu, sigma),
+                apply(lambda m, s: m / s**2, mu, sigma),
+            )
+        raise ValueError("Gamma requires (alpha, beta) or (mu, sigma)")
+
+    def _logp(self, value, alpha, beta):
+        safe = torch.where(value > 0, value, 1.0)
+        res = (
+            alpha * torch.log(beta)
+            + logpow(safe, alpha - 1.0)
+            - beta * safe
+            - torch.lgamma(alpha)
+        )
+        res = torch.where(value >= 0, res, -torch.inf)
+        return check_parameters(res, alpha > 0, beta > 0)
+
+    def _support_point(self, alpha, beta):
+        return alpha / beta

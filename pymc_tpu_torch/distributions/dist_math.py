@@ -1,7 +1,7 @@
 """Numeric helpers shared by distribution log-densities.
 
-Counterpart of `pymc_tpu/distributions/dist_math.py`, cut to what Normal and
-HalfCauchy use. Everything is a tensor operation with no host branch on a
+Counterpart of `pymc_tpu/distributions/dist_math.py`, cut to what the ported
+distributions use. Everything is a tensor operation with no host branch on a
 value, so `torch.func.vmap` runs through it.
 """
 
@@ -9,7 +9,7 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["check_parameters", "log_normal"]
+__all__ = ["check_parameters", "log_normal", "logpow"]
 
 _LOG_SQRT_2PI = 0.9189385332046727  # log(sqrt(2*pi))
 
@@ -26,3 +26,12 @@ def check_parameters(logp, *conditions):
 def log_normal(x, mean, std):
     """log N(x | mean, std^2)."""
     return -0.5 * ((x - mean) / std) ** 2 - torch.log(std) - _LOG_SQRT_2PI
+
+
+def logpow(x, m):
+    """m * log(x) with the convention 0**0 = 1 (reference dist_math.py:92).
+    x == 0 with m > 0 gives -inf; the double where keeps the gradient
+    NaN-free."""
+    is_zero = x == 0
+    log_x = torch.where(is_zero, -torch.inf, torch.log(torch.where(is_zero, 1.0, x)))
+    return torch.where(m == 0, 0.0, m * log_x)

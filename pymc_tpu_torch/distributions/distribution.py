@@ -8,7 +8,8 @@ are resolved through the evaluation env, so a model's joint logp stays one
 function of tensors.
 
 Subclasses define `param_names`, `support`, `__dist_init__`, `_logp` and
-`_support_point`.
+`_support_point`; a multivariate one also sets `param_event_ndims` and
+`event_ndim` and defines `_event_shape` (reference distribution.py:87-111).
 """
 
 from __future__ import annotations
@@ -33,6 +34,11 @@ def as_param(x):
 
 class Distribution:
     param_names: tuple = ()
+    # per-parameter event ndim (default zeros): the trailing dims of each
+    # parameter that are not batch dims
+    param_event_ndims: tuple | None = None
+    # ndim of one event: 0 scalar, 1 vector
+    event_ndim: int = 0
     support: str = "real"
     is_discrete: bool = False
 
@@ -63,17 +69,32 @@ class Distribution:
         if isinstance(shape, (int, np.integer)):
             shape = (int(shape),)
         obj.__dist_init__(*args, **kwargs)
-        batch = tuple(np.broadcast_shapes(*[p.shape for p in obj.param_values()]))
+        pshapes = [tuple(p.shape) for p in obj.param_values()]
+        event_ndims = obj.param_event_ndims or (0,) * len(pshapes)
+        batch = tuple(np.broadcast_shapes(
+            *[s[: len(s) - e] for s, e in zip(pshapes, event_ndims)]
+        ))
+        event = tuple(obj._event_shape(*pshapes))
         if shape is not None:
             shape = tuple(shape)
-            # the requested shape must be reachable by broadcasting the params
-            np.broadcast_shapes(shape, batch)
-            batch = shape
-        obj.shape = batch
+            if event and shape[len(shape) - len(event):] != event:
+                raise ValueError(
+                    f"shape {shape} incompatible with event shape {event} of {cls.__name__}"
+                )
+            requested = shape[: len(shape) - len(event)]
+            # the requested batch shape must be reachable by broadcasting the params
+            np.broadcast_shapes(requested, batch)
+            batch = requested
+        obj.batch_shape = batch
+        obj.event_shape = event
+        obj.shape = batch + event
         return obj
 
     def __dist_init__(self, *args, **kwargs):  # pragma: no cover - abstract
         raise NotImplementedError
+
+    def _event_shape(self, *param_shapes):
+        return ()
 
     def param_values(self):
         return [getattr(self, n) for n in self.param_names]

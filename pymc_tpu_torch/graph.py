@@ -120,31 +120,50 @@ class Node:
             return apply(lambda x, ix: x[ix], self, idx)
         return apply(lambda x: x[idx], self)
 
+    @staticmethod
+    def _operand_ok(o):
+        """False for foreign types with their own operator overloads (e.g.
+        gp.cov.Covariance), so the forward operators return NotImplemented
+        and Python asks the other operand (pymc_tpu/graph.py:257-265)."""
+        return isinstance(
+            o, (Node, numbers.Number, np.ndarray, list, tuple, torch.Tensor)
+        )
+
     def __add__(self, o):
+        if not self._operand_ok(o):
+            return NotImplemented
         return apply(operator.add, self, o)
 
     def __radd__(self, o):
         return apply(operator.add, o, self)
 
     def __sub__(self, o):
+        if not self._operand_ok(o):
+            return NotImplemented
         return apply(operator.sub, self, o)
 
     def __rsub__(self, o):
         return apply(operator.sub, o, self)
 
     def __mul__(self, o):
+        if not self._operand_ok(o):
+            return NotImplemented
         return apply(operator.mul, self, o)
 
     def __rmul__(self, o):
         return apply(operator.mul, o, self)
 
     def __truediv__(self, o):
+        if not self._operand_ok(o):
+            return NotImplemented
         return apply(operator.truediv, self, o)
 
     def __rtruediv__(self, o):
         return apply(operator.truediv, o, self)
 
     def __pow__(self, o):
+        if not self._operand_ok(o):
+            return NotImplemented
         return apply(operator.pow, self, o)
 
     def __rpow__(self, o):

@@ -13,6 +13,7 @@ from __future__ import annotations
 import torch
 
 from .blocking import ravel_point
+from .config import floatX, resolve_device
 
 __all__ = ["support_point_values", "make_initial_points_per_chain"]
 
@@ -34,11 +35,14 @@ _RETRIES = 10
 
 
 def make_initial_points_per_chain(model, logp_fn, chains, generator, device=None,
-                                  dtype=torch.float64):
-    """(chains, D) flat starting points: the support point plus U(-1, 1)
+                                  dtype=None):
+    """(chains, D) flat starting points on `device` (default: the card) in
+    `dtype` (default: `floatX(device)`): the support point plus U(-1, 1)
     jitter, the first of `_RETRIES` candidates per chain with a finite logp
     (the support point itself if none is). logp_fn maps a (N, D) batch of
     flat points to (N,) logps."""
+    device = resolve_device(device)
+    dtype = dtype or floatX(device)
     info = model.raveled_info()
     base = ravel_point(support_point_values(model), info).to(device=device, dtype=dtype)
     R = _RETRIES

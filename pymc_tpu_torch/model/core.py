@@ -154,9 +154,11 @@ class Model:
         return [n for n in ancestors(roots) if isinstance(n, ConstantNode)]
 
     def placed_constants(self, device=None, dtype=None):
-        """{id(node): tensor} with every constant on `device`, floats cast to
-        `dtype`: a ready memo for `graph.evaluate`, made once per function
-        build instead of once per leaf."""
+        """{id(node): tensor} with every constant on `device` (default: the
+        card), floats cast to `dtype` (default: `floatX(device)`): a ready
+        memo for `graph.evaluate`, made once per function build instead of
+        once per leaf. The density functions below take the same `device`
+        and `dtype`."""
         device = resolve_device(device)
         dtype = dtype or floatX(device)
         return {

@@ -4,7 +4,8 @@ Each `csrc/*.cu` file has a plain C interface. It is compiled with `nvcc`
 for Hopper (`sm_90a`) into a shared library under `<repo>/build/
 pymc_tpu_torch/`, named by a hash of its source and flags so that an edit
 rebuilds, and loaded with `ctypes`. Nothing is built at import: the first
-call that needs a kernel builds it (a few seconds for a file this size).
+call that needs a kernel builds it (a few seconds for a file this size);
+`load_libraries` builds several at once, one nvcc process each.
 """
 
 from __future__ import annotations
@@ -16,7 +17,10 @@ import shutil
 import subprocess
 import time
 
-__all__ = ["NVCC_FLAGS", "library_path", "load_library", "build_seconds", "build_log"]
+__all__ = [
+    "NVCC_FLAGS", "library_path", "load_library", "load_libraries", "build_seconds",
+    "build_log",
+]
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
@@ -55,28 +59,40 @@ def _nvcc():
     )
 
 
-def load_library(name):
-    """ctypes handle of `csrc/<name>.cu`, built first if needed."""
-    if name in _loaded:
-        return _loaded[name]
-    path = library_path(name)
-    if not os.path.exists(path):
+def load_libraries(names):
+    """ctypes handles of `csrc/<name>.cu` for each name, building the ones
+    not built yet with one nvcc each, all started together."""
+    names = list(dict.fromkeys(names))
+    todo = [n for n in names if n not in _loaded and not os.path.exists(library_path(n))]
+    if todo:
         nvcc = _nvcc()
         os.makedirs(BUILD_DIR, exist_ok=True)
-        tmp = f"{path}.{os.getpid()}.tmp"
-        src = os.path.join(CSRC_DIR, f"{name}.cu")
-        t0 = time.perf_counter()
-        proc = subprocess.run(
-            [nvcc, *NVCC_FLAGS, "-o", tmp, src],
-            capture_output=True, text=True,
-        )
-        build_seconds[name] = time.perf_counter() - t0
-        build_log[name] = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed to build {src} (exit {proc.returncode}):\n"
-                f"{proc.stdout}{proc.stderr}"
+        jobs = {}
+        for name in todo:
+            tmp = f"{library_path(name)}.{os.getpid()}.tmp"
+            src = os.path.join(CSRC_DIR, f"{name}.cu")
+            proc = subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, "-o", tmp, src],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
             )
-        os.replace(tmp, path)
-    _loaded[name] = ctypes.CDLL(path)
-    return _loaded[name]
+            jobs[name] = (proc, tmp, src, time.perf_counter())
+        failed = []
+        for name, (proc, tmp, src, t0) in jobs.items():
+            out, _ = proc.communicate()
+            build_seconds[name] = time.perf_counter() - t0
+            build_log[name] = out
+            if proc.returncode != 0:
+                failed.append(f"nvcc failed to build {src} (exit {proc.returncode}):\n{out}")
+            else:
+                os.replace(tmp, library_path(name))
+        if failed:
+            raise RuntimeError("\n".join(failed))
+    for name in names:
+        if name not in _loaded:
+            _loaded[name] = ctypes.CDLL(library_path(name))
+    return [_loaded[n] for n in names]
+
+
+def load_library(name):
+    """ctypes handle of `csrc/<name>.cu`, built first if needed."""
+    return load_libraries([name])[0]

@@ -51,7 +51,8 @@ class SamplingError(RuntimeError):
 
 
 class _CountedLogpGrad:
-    """logp_grad with a count of its calls: one call per batched leapfrog."""
+    """logp_grad with a count of its calls: one per batched call, whether
+    for the starting points or for a leapfrog."""
 
     def __init__(self, fn):
         self.fn = fn
@@ -87,12 +88,15 @@ def sample(
     mass_adapt / step_adapt : "per_chain" (reference behaviour) or "pooled"
         — pool the Welford variances / the dual-averaging acceptance across
         chains.
-    device : "cpu" (default) or "cuda"; asking for "cuda" without a card
-        raises. The sampler runs in float64 on the CPU, float32 on CUDA.
+    device : "cuda" (default) or "cpu"; the card is used unless "cpu" is
+        asked for, and without a card the default raises. The sampler runs
+        in float32 on CUDA, float64 on the CPU.
 
     Returns an InferenceData whose posterior attrs hold sampling_time,
     tuning_time, compile_time (seconds spent building kernels in this call),
-    n_leapfrog (batched leapfrog calls, step-size search included) and
+    n_leapfrog (batched leapfrog calls, step-size search included),
+    n_logp_grad (every batched logp+grad call: the starting points' two and
+    the leapfrogs') and
     sampling_host_syncs (the `.any()` syncs of the NUTS loops while
     drawing: one per leapfrog, two per tree doubling, one per draw).
     """
@@ -113,13 +117,13 @@ def sample(
     t0 = time.perf_counter()
     info = model.raveled_info()
     D = info.total_size
-    logp_grad = model.logp_dlogp_fn(device=device, dtype=dtype)
-    leapfrog_logp_grad = _CountedLogpGrad(logp_grad)
+    logp_grad = _CountedLogpGrad(model.logp_dlogp_fn(device=device, dtype=dtype))
 
     q0 = make_initial_points_per_chain(
         model, lambda q: logp_grad(q)[0], chains, gen, device=device, dtype=dtype
     )
     logp0, grad0 = logp_grad(q0)
+    calls_before_leapfrogs = logp_grad.calls
     bad = torch.nonzero(~torch.isfinite(logp0)).flatten().tolist()
     if bad:
         raise SamplingError(
@@ -127,7 +131,7 @@ def sample(
         )
     inv_mass = torch.ones((chains, D), dtype=dtype, device=device)
     xi = torch.randn((chains, D), generator=gen, dtype=dtype, device=device)
-    eps0 = find_reasonable_step_size(leapfrog_logp_grad, q0, logp0, grad0, xi, inv_mass)
+    eps0 = find_reasonable_step_size(logp_grad, q0, logp0, grad0, xi, inv_mass)
     if step_adapt == "pooled":
         eps0 = eps0.mean().expand(chains).clone()
     state = SamplerState(q0, logp0, grad0, inv_mass, eps0)
@@ -142,10 +146,10 @@ def sample(
         if i == tune:
             _synchronize(device)
             t1 = time.perf_counter()
-            calls_at_t1 = leapfrog_logp_grad.calls
+            calls_at_t1 = logp_grad.calls
         step_size = torch.exp(da.log_step if warm else da.log_step_avg)
         (q, logp, grad), stats = nuts_transition(
-            leapfrog_logp_grad, draw_source, state.q, state.logp, state.grad,
+            logp_grad, draw_source, state.q, state.logp, state.grad,
             step_size, state.inv_mass, max_treedepth=max_treedepth,
         )
         state = state._replace(q=q, logp=logp, grad=grad, step_size=step_size)
@@ -185,7 +189,7 @@ def sample(
     }
     # each draw's trajectory loop ran max-depth doublings, each with one
     # subtree loop: syncs = leapfrogs + 2 * max depth + 1 per draw
-    host_syncs = leapfrog_logp_grad.calls - calls_at_t1 + int(
+    host_syncs = logp_grad.calls - calls_at_t1 + int(
         (2 * stats.depth.max(axis=1) + 1).sum()
     )
     ss = torch.exp(da.log_step_avg).cpu().numpy()
@@ -199,7 +203,8 @@ def sample(
             "sampling_time": t2 - t1,
             "tuning_time": t1 - t0,
             "compile_time": sum(_build.build_seconds.values()) - built_before,
-            "n_leapfrog": leapfrog_logp_grad.calls,
+            "n_leapfrog": logp_grad.calls - calls_before_leapfrogs,
+            "n_logp_grad": logp_grad.calls,
             "sampling_host_syncs": host_syncs,
             "device": str(device),
             "inference_library": "pymc_tpu_torch",

@@ -1,10 +1,12 @@
 """Write the radon GLM posterior reference that `chip_smoke.py` checks the
 PyTorch port against.
 
-Runs `pymc_tpu` on the CPU (float64) with `bench.py`'s many-chain
-configuration: 64 chains, tune 300, draws 256, pooled mass and step
-adaptation, target_accept 0.95, seed 0. Writes the posterior mean, sd and
-MCSE of the five scalar parameters to `tests/data/torch_radon_reference.json`.
+Runs `pymc_tpu` on the CPU (float64) with the arguments `chip_smoke.py`
+samples the radon GLM with (`pymc_tpu_torch.models.RADON_SAMPLE_KWARGS`:
+`bench.py`'s many-chain configuration at 64 chains, tune 200, draws 128,
+pooled mass and step adaptation, target_accept 0.95, seed 0). Writes the
+posterior mean, sd and MCSE of the five scalar parameters to
+`tests/data/torch_radon_reference.json`.
 
 Usage:
     python scripts/make_torch_radon_fixture.py
@@ -29,13 +31,10 @@ sys.path.insert(0, ROOT)
 import pymc_tpu as pm  # noqa: E402
 from bench import build_model  # noqa: E402
 from pymc_tpu.stats.convergence import mcse_mean, rhat  # noqa: E402
+from pymc_tpu_torch.models import RADON_SAMPLE_KWARGS as CONFIG  # noqa: E402
 
 OUT = os.path.join(ROOT, "tests", "data", "torch_radon_reference.json")
 SCALARS = ("mu_a", "mu_b", "sigma_a", "sigma_b", "sigma_y")
-CONFIG = {
-    "chains": 64, "tune": 300, "draws": 256, "random_seed": 0,
-    "mass_adapt": "pooled", "step_adapt": "pooled", "target_accept": 0.95,
-}
 
 
 def main():

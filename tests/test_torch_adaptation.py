@@ -119,7 +119,7 @@ def radon_step_size():
     search = jax.jit(jax.vmap(
         lambda q, l, g, k, m: aj.find_reasonable_step_size(logp_grad_j, q, l, g, k, m)
     ))
-    return search, logp_grad_j, mt.logp_dlogp_fn(), info.total_size
+    return search, logp_grad_j, mt.logp_dlogp_fn(device="cpu"), info.total_size
 
 
 @pytest.mark.parametrize("initial_scale", [0.3, 1.0, 30.0])

@@ -69,7 +69,7 @@ def test_logp_and_grad_match(pair):
     q = np.random.default_rng(0).normal(0.0, 0.7, size=(16, info.total_size))
     lf = mj.logp_fn()
     lj, gj = jax.vmap(jax.value_and_grad(lambda x: lf(unravel_vector(x, info))))(q)
-    lt, gt = mt.logp_dlogp_fn()(torch.as_tensor(q))
+    lt, gt = mt.logp_dlogp_fn(device="cpu")(torch.as_tensor(q))
     assert lt.shape == (16,) and gt.shape == q.shape
     np.testing.assert_allclose(lt.numpy(), np.asarray(lj), rtol=1e-10)
     np.testing.assert_allclose(gt.numpy(), np.asarray(gj), rtol=1e-10, atol=1e-10)
@@ -80,7 +80,7 @@ def test_point_logp_matches(pair):
     point = make_initial_point(mj, jax.random.PRNGKey(3), jitter=1.0)
     ref = float(mj.logp_fn()(point))
     np_point = {k: np.asarray(v) for k, v in point.items()}
-    got = float(mt.logp_fn()(point_from_numpy(np_point)))
+    got = float(mt.logp_fn(device="cpu")(point_from_numpy(np_point)))
     np.testing.assert_allclose(got, ref, rtol=1e-12)
 
 
@@ -98,7 +98,7 @@ def test_deterministics_from_flat_draws_match(pair):
     info = mj.raveled_info()
     q = np.random.default_rng(1).normal(size=(5, info.total_size))
     ref = jax.vmap(_make_postprocess_fn(mj, info))(q)
-    got = mt.postprocess_fn()(torch.as_tensor(q))
+    got = mt.postprocess_fn(device="cpu")(torch.as_tensor(q))
     assert set(got) == set(ref)
     for k in ref:
         np.testing.assert_allclose(got[k].numpy(), np.asarray(ref[k]), rtol=1e-12)

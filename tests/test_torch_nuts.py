@@ -88,7 +88,7 @@ def _radon_target():
     return (
         info.total_size,
         jax.value_and_grad(lambda q: lf(unravel_vector(q, info))),
-        mt.logp_dlogp_fn(),
+        mt.logp_dlogp_fn(device="cpu"),
     )
 
 

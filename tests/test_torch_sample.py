@@ -15,6 +15,7 @@ import torch
 
 import pymc_tpu as pmj
 import pymc_tpu_torch as pmt
+from pymc_tpu_torch.initial_point import make_initial_points_per_chain
 from pymc_tpu_torch.stats.convergence import mcse_mean
 
 
@@ -86,17 +87,17 @@ def test_sampler_health_and_counters(both):
 def test_same_seed_same_draws():
     model = eight_schools(pmt)
     cfg = dict(CONFIG, draws=5, tune=5)
-    a = pmt.sample(model=model, **cfg).posterior["mu"].values
-    b = pmt.sample(model=model, **cfg).posterior["mu"].values
+    a = pmt.sample(model=model, device="cpu", **cfg).posterior["mu"].values
+    b = pmt.sample(model=model, device="cpu", **cfg).posterior["mu"].values
     np.testing.assert_array_equal(a, b)
 
 
 def test_bad_arguments_raise():
     model = eight_schools(pmt)
     with pytest.raises(ValueError, match="mass_adapt"):
-        pmt.sample(model=model, mass_adapt="full")
+        pmt.sample(model=model, mass_adapt="full", device="cpu")
     with pytest.raises(ValueError, match="draws"):
-        pmt.sample(model=model, draws=0)
+        pmt.sample(model=model, draws=0, device="cpu")
 
 
 def _run(code):
@@ -113,3 +114,16 @@ def test_cuda_request_without_card_raises():
         pytest.skip("a CUDA card is visible: nothing to refuse")
     with pytest.raises(RuntimeError, match="cuda"):
         pmt.sample(draws=2, tune=2, chains=1, model=eight_schools(pmt), device="cuda")
+
+
+def test_default_device_is_the_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is visible: the default would run there")
+    model = eight_schools(pmt)
+    with pytest.raises(RuntimeError, match="cuda"):
+        pmt.sample(draws=2, tune=2, chains=1, model=model)
+    for build in (model.logp_fn, model.logp_dlogp_fn, model.postprocess_fn):
+        with pytest.raises(RuntimeError, match="cuda"):
+            build()
+    with pytest.raises(RuntimeError, match="cuda"):
+        make_initial_points_per_chain(model, lambda q: q[:, 0], 2, torch.Generator())
