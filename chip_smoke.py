@@ -8,10 +8,13 @@ Phases, in order; any failure ends the script with a non-zero exit:
   3. kernels  — each kernel against its plain PyTorch version on the card:
                 the leapfrog pair at the (chains, D) of both sampled models
                 and at edges of its range, in float32 and float64,
-                the batched Cholesky at several (C, n) and on a batch with
-                indefinite matrices; each timed with CUDA events at the
-                sampler's shapes, the Cholesky also against
-                torch.linalg.cholesky as a yardstick
+                the batched Cholesky at the GP path's (64, 150) and at n from
+                1 to 1000 in float32 and float64, on both sides of the
+                shared-memory limit, and on batches with indefinite
+                matrices; each timed with CUDA events at the sampler's
+                shapes, the Cholesky at (64, 150), (1024, 150) and (8, 500)
+                also against torch.linalg.cholesky_ex (the yardstick) and
+                torch.linalg.cholesky
   4. logp     — the radon GLM's and the marginal GP's (C, D) -> (logp,
                 grad) on the card in float32 against the port on the CPU
                 in float64
@@ -69,11 +72,20 @@ TIMED_SHAPES = [(64, 175), (1024, 175)]
 RTOL = {torch.float32: 1e-6, torch.float64: 1e-13}
 RTOL_KE = {torch.float32: 1e-5, torch.float64: 1e-12}
 SCALARS = ("mu_a", "mu_b", "sigma_a", "sigma_b", "sigma_y")
-# (C, n, dtype): the GP path's stack first, then edges of the kernel's range
+# (C, n, dtype): the GP path's stack first, then edges of the kernel's range;
+# the tiles of a matrix stay in shared memory up to n = 320 (float32) and
+# n = 224 (float64), beyond that in a device workspace
 CHOL_SHAPES = [
     (64, 150, torch.float32), (64, 150, torch.float64), (1, 1, torch.float32),
     (7, 13, torch.float32), (3, 160, torch.float32), (1024, 150, torch.float32),
+    (8, 161, torch.float32), (4, 256, torch.float32), (2, 320, torch.float32),
+    (2, 321, torch.float32), (8, 500, torch.float32), (2, 1000, torch.float32),
+    (4, 161, torch.float64), (3, 224, torch.float64), (2, 225, torch.float64),
+    (2, 300, torch.float64),
 ]
+# (C, n) timed in float32, the GP path's first; indefinite batches at these n
+CHOL_TIMED = [(64, 150), (1024, 150), (8, 500)]
+CHOL_INDEFINITE = [150, 300, 500]
 # |L - L_plain| <= tol * n * max|L_plain|: float32 is tests/ops/test_linalg.py's bound
 CHOL_TOL = {torch.float32: 2e-5, torch.float64: 1e-12}
 # published H100 SXM peaks: HBM bytes/s, and FLOP/s outside the tensor cores
@@ -255,19 +267,33 @@ def spd_stack(C, n, dtype, seed):
     return (B @ B.transpose(-1, -2) / n + eye).to(dtype)
 
 
+def chol_bound(C, n):
+    """Bound of one factorisation in float32: A's lower triangle read once,
+    the dense L written once; C n^3 / 3 multiply-adds."""
+    return bound_ms(C * (n * (n + 1) // 2 + n * n) * 4, C * n**3 / 3, torch.float32)
+
+
 def check_cholesky(card):
     """Phase 3, Cholesky: the kernel against cholesky_plain on the card at
-    CHOL_SHAPES and on a batch with indefinite matrices, then timed at the
-    GP path's (64, 150) float32 against its plain version and against
-    torch.linalg.cholesky. Returns (max abs error at (64, 150) float32,
-    {name: median ms})."""
+    CHOL_SHAPES and on batches with indefinite matrices, each call one
+    launch, then timed at CHOL_TIMED in float32 against its plain version,
+    torch.linalg.cholesky_ex and torch.linalg.cholesky. Returns (max abs
+    error at (64, 150) float32, {name: median ms} at (64, 150))."""
     from pymc_tpu_torch.ops import linalg as la
 
     phase("3 cholesky kernel against its plain version")
+
+    def factor(A):
+        before = la.cholesky_batched.launches
+        L = la.cholesky_batched(A)
+        if la.cholesky_batched.launches != before + 1:
+            raise AssertionError(f"cholesky_batched at {tuple(A.shape)} launched no kernel")
+        return L
+
     err_main = None
     for C, n, dtype in CHOL_SHAPES:
         A = spd_stack(C, n, dtype, seed=C + n)
-        L = la.cholesky_batched(A)
+        L = factor(A)
         ref = la.cholesky_plain(A)
         torch.cuda.synchronize()
         tag = f"({C}, {n}) {dtype}"
@@ -280,34 +306,46 @@ def check_cholesky(card):
         if err_main is None:
             err_main = err
     # indefinite matrices: A - 3 I has eigenvalues on both sides of 0
-    A = spd_stack(16, 150, torch.float32, seed=99)
-    bad = torch.zeros(16, dtype=torch.bool, device="cuda")
-    bad[[3, 7, 12]] = True
-    A[bad] -= 3.0 * torch.eye(150, device="cuda")
-    L = la.cholesky_batched(A)
-    ref = la.cholesky_plain(A)
-    torch.cuda.synchronize()
-    nonfinite = ~torch.isfinite(L).flatten(1).all(dim=1)
-    err = float((L[~bad].double() - ref[~bad].double()).abs().max())
-    tol = CHOL_TOL[torch.float32] * 150 * float(ref[~bad].double().abs().max())
-    print(f"indefinite batch: non-finite factors at {nonfinite.nonzero().flatten().tolist()} "
-          f"(indefinite {bad.nonzero().flatten().tolist()}); others max abs err {err:.3e}")
-    if not (bool((nonfinite == bad).all()) and err <= tol):
-        raise AssertionError("cholesky kernel mishandles a batch with indefinite matrices")
-    A = spd_stack(64, 150, torch.float32, seed=1)
-    calls = {
-        "plain": lambda: la.cholesky_plain(A),
-        "kernel": lambda: la.cholesky_batched(A),
-        "library": lambda: torch.linalg.cholesky(A),
-    }
-    measured = {k: [] for k in calls}
-    for k in ("plain", "kernel", "library", "library", "kernel", "plain"):
-        measured[k].append(cuda_ms(calls[k]))
-    for k, v in measured.items():
-        print(f"(64, 150) float32 cholesky {k}: device ms "
-              f"{', '.join(f'{m[0]:.5f}' for m in v)}; host ms per call "
-              f"{', '.join(f'{m[1]:.5f}' for m in v)}  [{card}]")
-    return err_main, {k: min(m[0] for m in v) for k, v in measured.items()}
+    for n in CHOL_INDEFINITE:
+        A = spd_stack(16, n, torch.float32, seed=99 + n)
+        bad = torch.zeros(16, dtype=torch.bool, device="cuda")
+        bad[[3, 7, 12]] = True
+        A[bad] -= 3.0 * torch.eye(n, device="cuda")
+        L = factor(A)
+        ref = la.cholesky_plain(A)
+        torch.cuda.synchronize()
+        nonfinite = ~torch.isfinite(L).flatten(1).all(dim=1)
+        err = float((L[~bad].double() - ref[~bad].double()).abs().max())
+        tol = CHOL_TOL[torch.float32] * n * float(ref[~bad].double().abs().max())
+        print(f"indefinite batch (16, {n}): non-finite factors at "
+              f"{nonfinite.nonzero().flatten().tolist()} (indefinite "
+              f"{bad.nonzero().flatten().tolist()}); others max abs err {err:.3e}")
+        if not (bool((nonfinite == bad).all()) and err <= tol):
+            raise AssertionError(f"cholesky kernel mishandles indefinite matrices at n = {n}")
+    times = {}
+    for C, n in CHOL_TIMED:
+        A = spd_stack(C, n, torch.float32, seed=1)
+        calls = {
+            "plain": lambda: la.cholesky_plain(A),
+            "kernel": lambda: la.cholesky_batched(A),
+            "library": lambda: torch.linalg.cholesky_ex(A),
+            "cholesky": lambda: torch.linalg.cholesky(A),
+        }
+        # in turns, mirrored: compare within one card and call
+        order = ["plain", "kernel", "library", "cholesky"]
+        measured = {k: [] for k in calls}
+        for k in order + order[::-1]:
+            measured[k].append(cuda_ms(calls[k]))
+        times[(C, n)] = {k: min(m[0] for m in v) for k, v in measured.items()}
+        for k, v in measured.items():
+            print(f"({C}, {n}) float32 cholesky {k}: device ms "
+                  f"{', '.join(f'{m[0]:.5f}' for m in v)}; host ms per call "
+                  f"{', '.join(f'{m[1]:.5f}' for m in v)}  [{card}]")
+        b_ms, b_by = chol_bound(C, n)
+        print(f"({C}, {n}) float32 cholesky: kernel {times[(C, n)]['kernel']:.5f} ms, "
+              f"cholesky_ex {times[(C, n)]['library']:.5f} ms, bound {b_ms:.7f} ms "
+              f"({b_by})  [{card}]")
+    return err_main, times[CHOL_TIMED[0]]
 
 
 def check_logp_on_card(label, model):
@@ -477,9 +515,7 @@ def kernel_records(launches, errs, times, chol_err, chol_times):
             "ms": times[(C, D)][key], "plain_ms": times[(C, D)][f"{key}_plain"],
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
         })
-    # the factorisation reads A's lower triangle and writes the dense L
-    C, n = 64, 150
-    b_ms, b_by = bound_ms(C * (n * (n + 1) // 2 + n * n) * 4, C * n**3 / 3, f32)
+    b_ms, b_by = chol_bound(*CHOL_TIMED[0])
     records.append({
         "name": "cholesky_batched", "route": "cuda", "source": CHOL_SOURCE,
         "replaces": "pymc_tpu/ops/linalg.py:137", "launches": launches["cholesky"],
