@@ -96,9 +96,11 @@ def sample(
     tuning_time, compile_time (seconds spent building kernels in this call),
     n_leapfrog (batched leapfrog calls, step-size search included),
     n_logp_grad (every batched logp+grad call: the starting points' two and
-    the leapfrogs') and
-    sampling_host_syncs (the `.any()` syncs of the NUTS loops while
-    drawing: one per leapfrog, two per tree doubling, one per draw).
+    the leapfrogs'), n_step_search (the step-size search's batched
+    leapfrogs), n_subtrees (batched subtrees built, tuning included: one per
+    doubling of the deepest tree of each draw) and
+    sampling_host_syncs (the syncs of the NUTS loops while drawing: one per
+    leapfrog and per tree doubling, one per draw).
     """
     if draws < 1:
         raise ValueError("draws must be >= 1")
@@ -132,6 +134,7 @@ def sample(
     inv_mass = torch.ones((chains, D), dtype=dtype, device=device)
     xi = torch.randn((chains, D), generator=gen, dtype=dtype, device=device)
     eps0 = find_reasonable_step_size(logp_grad, q0, logp0, grad0, xi, inv_mass)
+    n_step_search = logp_grad.calls - calls_before_leapfrogs
     if step_adapt == "pooled":
         eps0 = eps0.mean().expand(chains).clone()
     state = SamplerState(q0, logp0, grad0, inv_mass, eps0)
@@ -140,7 +143,7 @@ def sample(
     schedule = build_schedule(tune)
     draw_source = TorchDraws(gen, chains, D, dtype, device)
 
-    q_draws, stat_draws = [], []
+    q_draws, stat_draws, depths = [], [], []
     for i in range(tune + draws):
         warm = i < tune
         if i == tune:
@@ -153,6 +156,7 @@ def sample(
             step_size, state.inv_mass, max_treedepth=max_treedepth,
         )
         state = state._replace(q=q, logp=logp, grad=grad, step_size=step_size)
+        depths.append(stats.depth)
         if not warm:
             q_draws.append(q)
             stat_draws.append(stats)
@@ -187,11 +191,11 @@ def sample(
     sample_stats = {
         _STAT_NAMES[f]: getattr(stats, f).swapaxes(0, 1) for f in NutsStats._fields
     }
-    # each draw's trajectory loop ran max-depth doublings, each with one
-    # subtree loop: syncs = leapfrogs + 2 * max depth + 1 per draw
-    host_syncs = logp_grad.calls - calls_at_t1 + int(
-        (2 * stats.depth.max(axis=1) + 1).sum()
-    )
+    # each draw's trajectory loop ran max-depth doublings (one subtree each)
+    # and read one `.any()` per doubling and one at its end; each leaf read
+    # one count: syncs = leapfrogs + max depth + 1 per draw
+    subtrees = torch.stack(depths).amax(dim=1).cpu().numpy()
+    host_syncs = logp_grad.calls - calls_at_t1 + int((subtrees[tune:] + 1).sum())
     ss = torch.exp(da.log_step_avg).cpu().numpy()
     sample_stats["step_size"] = np.broadcast_to(ss[:, None], (chains, draws)).copy()
     idata = to_inference_data(
@@ -205,6 +209,8 @@ def sample(
             "compile_time": sum(_build.build_seconds.values()) - built_before,
             "n_leapfrog": logp_grad.calls - calls_before_leapfrogs,
             "n_logp_grad": logp_grad.calls,
+            "n_step_search": n_step_search,
+            "n_subtrees": int(subtrees.sum()),
             "sampling_host_syncs": host_syncs,
             "device": str(device),
             "inference_library": "pymc_tpu_torch",

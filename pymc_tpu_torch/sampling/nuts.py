@@ -7,10 +7,13 @@ sampling via logaddexp log_size, generalized U-turn criterion, divergence at
 dH > 1000). All chains advance in lock-step and finished chains are masked,
 exactly what the JAX package's vmap-of-while lowers to.
 
-The JAX package's `lax.while_loop`s become Python loops whose condition is
-one `.any()` per iteration, i.e. one host sync per leaf and per doubling.
-Every leapfrog runs through the two kernels of `ops/leapfrog.py` in the
-reference's order: kick_drift, then `logp_grad_b(q')`, then final_kick.
+The JAX package's `lax.while_loop`s become Python loops: the trajectory's
+reads one `.any()` per doubling, the subtree's the count of active chains
+after each leaf, so one host sync per leaf and per doubling. A subtree
+starts with one half kick and drift (`leapfrog_kick_drift`); each leaf is
+then `logp_grad_b(q')`, one uniform draw and one `nuts_leaf_step`, which
+does the final kick, the tree bookkeeping and the next kick-drift in one
+kernel launch on the card (ops/leapfrog.py).
 
 Randomness is injected through a draw source (`TorchDraws` on a
 `torch.Generator`), so the tests can replay the JAX package's key stream.
@@ -22,11 +25,9 @@ from typing import NamedTuple
 
 import torch
 
-from ..ops.leapfrog import leapfrog_final_kick, leapfrog_kick_drift
+from ..ops.leapfrog import SubtreeState, _w, nuts_leaf_step
 
 __all__ = ["NutsStats", "SamplerState", "TorchDraws", "nuts_transition"]
-
-_MAX_ENERGY_ERROR = 1000.0  # divergence threshold (reference nuts.py:419-440)
 
 
 class NutsStats(NamedTuple):
@@ -86,126 +87,23 @@ class TorchDraws:
         return self._uniform()
 
 
-class _Subtree(NamedTuple):
-    n: torch.Tensor  # leaves built so far (C,)
-    q: torch.Tensor  # current (last) leaf
-    p: torch.Tensor
-    grad: torch.Tensor
-    logp: torch.Tensor
-    prop_q: torch.Tensor  # progressive multinomial proposal
-    prop_p: torch.Tensor
-    prop_grad: torch.Tensor
-    prop_logp: torch.Tensor
-    prop_energy: torch.Tensor
-    log_size: torch.Tensor
-    sum_accept: torch.Tensor
-    max_eerr: torch.Tensor  # signed max |energy error|
-    p_sum: torch.Tensor  # momentum sum over the subtree's leaves
-    p_ckpt: torch.Tensor  # (C, S, D) checkpointed momenta
-    psum_ckpt: torch.Tensor  # (C, S, D) exclusive prefix sums
-    turning: torch.Tensor
-    diverging: torch.Tensor
-
-
-def _w(mask, new, old):
-    """where(mask, new, old) with mask (C,) broadcast over trailing dims."""
-    return torch.where(mask.reshape(mask.shape + (1,) * (new.ndim - 1)), new, old)
-
-
-def popcount(x):
-    """Number of set bits of each int32 (x >= 0): torch has no popcount."""
-    x = x - ((x >> 1) & 0x55555555)
-    x = (x & 0x33333333) + ((x >> 2) & 0x33333333)
-    x = (x + (x >> 4)) & 0x0F0F0F0F
-    return (x + (x >> 8) + (x >> 16) + (x >> 24)) & 0x3F
-
-
 def _build_subtree(
     logp_grad_b, draws, depth, active0, q0, p0, grad0, logp0, eps_signed,
     inv_mass, h0, max_treedepth,
 ):
     """2**depth leaves per active chain; chains that turn or diverge (or were
-    inactive) are masked. The checkpoint stacks are (C, S, D): leaf i is
-    stored at slot popcount(i) when i is even; at odd i the completed
-    subtrees ending there are U-turn checked against their start slots."""
-    C, D = q0.shape
-    dtype, device = q0.dtype, q0.device
-    S = max_treedepth + 1
-    n_target = torch.ones_like(depth) << depth
-    zeros_c = torch.zeros((C,), dtype=dtype, device=device)
-    false_c = torch.zeros((C,), dtype=torch.bool, device=device)
-    s = _Subtree(
-        n=torch.zeros((C,), dtype=torch.int32, device=device),
-        q=q0, p=p0, grad=grad0, logp=logp0,
-        prop_q=q0, prop_p=p0, prop_grad=grad0, prop_logp=logp0, prop_energy=h0,
-        log_size=torch.full((C,), -torch.inf, dtype=dtype, device=device),
-        sum_accept=zeros_c, max_eerr=zeros_c,
-        p_sum=torch.zeros((C, D), dtype=dtype, device=device),
-        p_ckpt=torch.zeros((C, S, D), dtype=dtype, device=device),
-        psum_ckpt=torch.zeros((C, S, D), dtype=dtype, device=device),
-        turning=false_c, diverging=false_c,
+    inactive) are masked. The subtree's state lives in the buffers of a
+    SubtreeState, which each leaf's `nuts_leaf_step` updates in place (see
+    ops/leapfrog.py). Returns it and the first leaf's momentum."""
+    s = SubtreeState(
+        q0, p0, grad0, logp0, h0, inv_mass, eps_signed, active0, depth, max_treedepth + 1
     )
-    slots = torch.arange(S, dtype=torch.int32, device=device)
-
     while True:
-        act = active0 & (s.n < n_target) & ~s.turning & ~s.diverging
-        if not bool(act.any()):
-            break
-        q_half, p_half = leapfrog_kick_drift(s.q, s.p, s.grad, inv_mass, eps_signed)
-        logp, grad = logp_grad_b(q_half)
-        p, ke = leapfrog_final_kick(p_half, grad, inv_mass, eps_signed)
-        q = q_half
-        energy = -logp + ke
-        eerr = energy - h0
-        eerr_ok = torch.isfinite(eerr)
-        diverging = act & (~eerr_ok | (eerr > _MAX_ENERGY_ERROR))
-        eerr_safe = torch.where(eerr_ok, eerr, torch.inf)
-
-        log_w = -eerr_safe
-        log_size_new = torch.logaddexp(s.log_size, log_w)
-        accept_prob = torch.exp(torch.clamp(log_w, max=0.0))
+        logp, grad = logp_grad_b(s.q_half)
         u = draws.leaf_uniform(depth, s.n)
-        take = act & ~diverging & (torch.log(u) < log_w - log_size_new)
-
-        n = s.n
-        is_even = (n & 1) == 0
-        pc = popcount(n)
-        sel = (slots[None, :] == pc[:, None]) & (is_even & act)[:, None]
-        p_ckpt = torch.where(sel[..., None], p[:, None, :], s.p_ckpt)
-        psum_ckpt = torch.where(sel[..., None], s.p_sum[:, None, :], s.psum_ckpt)
-        p_sum = _w(act & ~diverging, s.p_sum + p, s.p_sum)
-
-        # U-turn checks of the completed subtrees ending at odd leaves,
-        # vectorised over chains and checkpoint slots
-        t_ones = popcount(n ^ (n + 1)) - 1
-        c_hi = pc - 1
-        c_lo = pc - t_ones
-        slot_active = (slots[None, :] >= c_lo[:, None]) & (slots[None, :] <= c_hi[:, None])
-        rho_all = p_sum[:, None, :] - psum_ckpt  # (C, S, D)
-        v_starts = inv_mass[:, None, :] * p_ckpt
-        dot_start = torch.sum(v_starts * rho_all, dim=-1)  # (C, S)
-        dot_leaf = torch.sum(rho_all * (inv_mass * p)[:, None, :], dim=-1)
-        any_turn = torch.any(slot_active & ((dot_start <= 0.0) | (dot_leaf <= 0.0)), dim=-1)
-        turning = torch.where(act & ~is_even & ~diverging, s.turning | any_turn, s.turning)
-
-        abs_bigger = torch.abs(eerr_safe) > torch.abs(s.max_eerr)
-        s = _Subtree(
-            n=torch.where(act, n + 1, n),
-            q=_w(act, q, s.q), p=_w(act, p, s.p),
-            grad=_w(act, grad, s.grad), logp=torch.where(act, logp, s.logp),
-            prop_q=_w(take, q, s.prop_q), prop_p=_w(take, p, s.prop_p),
-            prop_grad=_w(take, grad, s.prop_grad),
-            prop_logp=torch.where(take, logp, s.prop_logp),
-            prop_energy=torch.where(take, energy, s.prop_energy),
-            log_size=torch.where(act & ~diverging, log_size_new, s.log_size),
-            sum_accept=torch.where(act, s.sum_accept + accept_prob, s.sum_accept),
-            max_eerr=torch.where(act & abs_bigger, eerr_safe, s.max_eerr),
-            p_sum=p_sum, p_ckpt=p_ckpt, psum_ckpt=psum_ckpt,
-            turning=turning,
-            diverging=torch.where(act, diverging, s.diverging),
-        )
-    # the first leaf's momentum sits at checkpoint slot 0 (leaf 0 is even)
-    return s, s.p_ckpt[:, 0]
+        if not int(nuts_leaf_step(s, logp, grad, u)):
+            # the first leaf's momentum sits at checkpoint slot 0 (leaf 0 is even)
+            return s, s.p_ckpt[:, 0]
 
 
 def nuts_transition(

@@ -6,10 +6,17 @@ float32:
   1. logp+grad alone: host ms per batched call (wall of 50 calls ended by a
      synchronize), and under torch.profiler the device ms and the number of
      kernels per call;
-  2. a short pymc_tpu_torch.sample run (tune 10, draws 5, trees cut at
-     depth 4, so at most 15 leapfrogs a draw) under torch.profiler: its
-     wall, the device's kernel time and busy share, kernels per logp+grad
-     call, and the five kernels with the most device time.
+  2. the leaf loop of one NUTS subtree alone (2**6 leaves, a small step so
+     that no chain turns early): host ms per leaf, and under the profiler
+     the kernels per leaf, split into logp+grad and the NUTS side (the
+     uniform draw, the fused leaf kernel, the read of the active count);
+  3. a short pymc_tpu_torch.sample run (tune 10, draws 5, trees cut at
+     depth 4, so at most 15 leapfrogs a draw), once without the profiler
+     for host ms per batched leapfrog, then under it: the device's kernel
+     time and busy share, kernels per batched leapfrog split into
+     logp+grad and everything else (the leaves, and spread over them the
+     per-doubling merge, the subtree set-up and the per-draw adaptation),
+     and the five kernels with the most device time with their shares.
 The card's name and power limit are printed beside the numbers; the script
 exits non-zero without CUDA. The short run's trees follow an unadapted step
 size and are cut at depth 4, so its figures describe the per-leapfrog and
@@ -50,6 +57,29 @@ def kernel_stats(prof):
     return sum(r[1] for r in rows), sum(r[2] for r in rows), rows
 
 
+def leaf_loop(fn, q, gen, depth=6):
+    """One subtree of 2**depth leaves from q with a small step; returns the
+    number of leaves run."""
+    from pymc_tpu_torch.ops.leapfrog import SubtreeState, nuts_leaf_step
+
+    C, D = q.shape
+    logp, grad = fn(q)
+    p = torch.randn(C, D, generator=gen, device="cuda")
+    h0 = -logp + 0.5 * torch.sum(p * p, dim=-1)
+    s = SubtreeState(
+        q, p, grad, logp, h0, torch.ones_like(q), torch.full((C,), 1e-3, device="cuda"),
+        torch.ones(C, dtype=torch.bool, device="cuda"),
+        torch.full((C,), depth, dtype=torch.int32, device="cuda"), depth + 1,
+    )
+    leaves = 0
+    while True:
+        lp, g = fn(s.q_half)
+        u = torch.rand(C, generator=gen, device="cuda")
+        leaves += 1
+        if not int(nuts_leaf_step(s, lp, g, u)):
+            return leaves
+
+
 def probe(label, model, card):
     import pymc_tpu_torch as pm
 
@@ -72,12 +102,33 @@ def probe(label, model, card):
             fn(q)
         torch.cuda.synchronize()
     dev_ms, n_kernels, _ = kernel_stats(prof)
+    k_logp = n_kernels / 10
     print(f"{label} logp+grad (C={CHAINS}, D={D}): host ms per call {host_ms:.3f}; "
-          f"device ms per call {dev_ms / 10:.4f}; kernels per call {n_kernels / 10:.1f}  [{card}]")
+          f"device ms per call {dev_ms / 10:.4f}; kernels per call {k_logp:.1f}  [{card}]")
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    leaf_loop(fn, q, gen)  # warm up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    leaves = leaf_loop(fn, q, gen)
+    torch.cuda.synchronize()
+    leaf_ms = (time.perf_counter() - t0) / leaves * 1e3
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        leaves_p = leaf_loop(fn, q, gen)
+        torch.cuda.synchronize()
+    _, n_kernels, _ = kernel_stats(prof)
+    print(f"{label} leaf loop ({leaves} leaves): host ms per leaf {leaf_ms:.3f}; kernels per "
+          f"leaf {n_kernels / leaves_p:.1f} = logp+grad {k_logp:.1f} + NUTS "
+          f"{n_kernels / leaves_p - k_logp:.1f} (the subtree's set-up spread over "
+          f"{leaves_p} leaves included)  [{card}]")
 
     kw = dict(draws=5, tune=10, chains=CHAINS, random_seed=0, mass_adapt="pooled",
               max_treedepth=4, compute_convergence_checks=False, device="cuda")
     pm.sample(model=model, **dict(kw, draws=1, tune=1))  # warm up
+    t0 = time.perf_counter()
+    idata = pm.sample(model=model, **kw)
+    torch.cuda.synchronize()
+    wall_plain = time.perf_counter() - t0
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         idata = pm.sample(model=model, **kw)
@@ -85,12 +136,15 @@ def probe(label, model, card):
         wall = time.perf_counter() - t0
     dev_ms, n_kernels, rows = kernel_stats(prof)
     calls = idata.posterior.attrs["n_logp_grad"]
-    print(f"{label} sample(tune 10, draws 5, max_treedepth 4): wall {wall:.3f} s (profiled); device kernel "
-          f"time {dev_ms / 1e3:.4f} s; busy {100 * dev_ms / 1e3 / wall:.2f} %; "
-          f"{calls} logp+grad calls; {wall / calls * 1e3:.3f} ms and "
-          f"{n_kernels / calls:.1f} kernels per call  [{card}]")
+    per_call = n_kernels / calls
+    print(f"{label} sample(tune 10, draws 5, max_treedepth 4): wall {wall_plain:.3f} s, "
+          f"host ms per batched leapfrog {wall_plain / calls * 1e3:.3f} (not profiled); "
+          f"profiled wall {wall:.3f} s; device kernel time {dev_ms / 1e3:.4f} s; busy "
+          f"{100 * dev_ms / 1e3 / wall:.2f} %; {calls} logp+grad calls; kernels per "
+          f"batched leapfrog {per_call:.1f} = logp+grad {k_logp:.1f} + NUTS and adaptation "
+          f"{per_call - k_logp:.1f}  [{card}]")
     for name, ms, count in rows[:5]:
-        print(f"    {ms:10.3f} ms  {count:7d}x  {name[:90]}")
+        print(f"    {ms:10.3f} ms  {100 * ms / dev_ms:5.1f} %  {count:7d}x  {name[:80]}")
 
 
 def main():

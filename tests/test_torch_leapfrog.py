@@ -1,10 +1,13 @@
-"""The port's leapfrog halves against the Pallas TPU kernels.
+"""The port's leapfrog halves against the Pallas TPU kernels, and the
+fused NUTS leaf's wrapper.
 
 On the CPU the wrappers of pymc_tpu_torch.ops.leapfrog run their plain
-PyTorch versions; here they are held against pymc_tpu's Pallas kernel
+PyTorch versions; here the halves are held against pymc_tpu's Pallas kernel
 bodies in interpret mode (as tests/ops/test_pallas.py runs them), in
-float64 to rtol 1e-12. The CUDA kernels themselves are checked against the
-plain versions on the card by chip_smoke.py.
+float64 to rtol 1e-12. The leaf's plain version is held against the JAX
+package's NUTS transition in tests/test_torch_nuts.py. The CUDA kernels
+themselves are checked against the plain versions on the card by
+chip_smoke.py.
 """
 
 import numpy as np
@@ -12,6 +15,7 @@ import pytest
 import torch
 
 from pymc_tpu.ops import pallas_kernels as pk
+from pymc_tpu_torch.config import resolve_device
 from pymc_tpu_torch.ops import _build
 from pymc_tpu_torch.ops import leapfrog as lf
 
@@ -114,10 +118,118 @@ def test_build_path_is_keyed_by_source_hash(tmp_path, monkeypatch):
     assert first.startswith(_build.BUILD_DIR) and first.endswith(".so")
 
 
-def test_build_without_nvcc_raises(tmp_path, monkeypatch):
+@pytest.mark.parametrize(
+    "load",
+    [lambda: _build.load_library("leapfrog"), lambda: lf._leaf_kernel(torch.float64)],
+    ids=["library", "leaf-kernel"],
+)
+def test_build_without_nvcc_raises(tmp_path, monkeypatch, load):
     monkeypatch.setenv("PATH", str(tmp_path))
     monkeypatch.setenv("CUDA_HOME", str(tmp_path))
     monkeypatch.setattr(_build, "BUILD_DIR", str(tmp_path / "build"))
     monkeypatch.setattr(_build, "_loaded", {})
+    monkeypatch.setattr(lf, "_kernels", {})
     with pytest.raises(RuntimeError, match="nvcc not found"):
-        _build.load_library("leapfrog")
+        load()
+
+
+def _leaf(C=4, D=3, dtype=torch.float64, device="cpu"):
+    """A SubtreeState of depth 3 with 4 checkpoint slots, and one leaf's
+    (logp, grad, u)."""
+    rng = np.random.default_rng(5)
+
+    def t(x):
+        return torch.as_tensor(x, dtype=dtype, device=device)
+
+    q, p, g, im, eps = (t(x) for x in _inputs(C, D, seed=0))
+    s = lf.SubtreeState(
+        q, p, g, t(rng.normal(size=C)), t(rng.normal(size=C)), im, eps,
+        torch.ones(C, dtype=torch.bool, device=device),
+        torch.full((C,), 3, dtype=torch.int32, device=device), 4,
+    )
+    return s, t(rng.normal(size=C)), t(rng.normal(size=(C, D))), t(rng.uniform(size=C))
+
+
+@pytest.mark.parametrize(
+    "mutate, error",
+    [
+        (lambda a: a.__setitem__(0, a[0][:-1]), ValueError),  # logp not (C,)
+        (lambda a: a.__setitem__(1, a[1][:, :-1]), ValueError),  # grad not (C, D)
+        (lambda a: a.__setitem__(2, a[2][None]), ValueError),  # u not (C,)
+        (lambda a: a.__setitem__(1, a[1].float()), TypeError),  # dtype of the state
+        (lambda a: a.__setitem__(2, a[2].to("meta")), ValueError),  # device of the state
+        (lambda a: a.__setitem__(1, a[1].t().contiguous().t()), ValueError),  # strided
+    ],
+)
+def test_leaf_wrapper_rejects_bad_operands(mutate, error):
+    s, *args = _leaf()
+    mutate(args)
+    with pytest.raises(error):
+        lf.nuts_leaf_step(s, *args)
+
+
+@pytest.mark.parametrize("bad", ["logp0", "active0", "depth", "slots", "inv_mass"])
+def test_subtree_state_rejects_bad_inputs(bad):
+    q, p, g, im, eps = _cpu()
+    args = dict(
+        q0=q, p0=p, grad0=g, logp0=q[:, 0].clone(), h0=q[:, 1].clone(), inv_mass=im,
+        eps=eps, active0=torch.ones(4, dtype=torch.bool),
+        depth=torch.zeros(4, dtype=torch.int32), slots=3,
+    )
+    args[bad] = {
+        "logp0": q[:3, 0], "active0": torch.ones(4), "depth": torch.zeros(4),
+        "slots": 0, "inv_mass": im[:, :2],
+    }[bad]
+    with pytest.raises(ValueError):
+        lf.SubtreeState(**args)
+
+
+def test_leaf_on_cpu_takes_the_plain_path():
+    s, logp, grad, u = _leaf()
+    np.testing.assert_array_equal(
+        s.q_half.numpy(), lf.kick_drift_plain(s.q, s.p, s.grad, s.inv_mass, s.eps)[0].numpy()
+    )
+    twin = s.clone()
+    before = lf.nuts_leaf_step.launches
+    for k in range(3):
+        count = lf.nuts_leaf_step(s, logp, grad, u)
+        count_plain = lf.nuts_leaf_step_plain(twin, logp, grad, u)
+        assert count.dtype == torch.int32 and count.shape == ()
+        assert int(count) == int(s.act.sum()) == int(count_plain)
+        assert int(s.count[(k + 1) & 1]) == 0 and s.leaf == k + 1
+        if k == 0:  # every chain stepped: leaf 0's momentum is at slot 0
+            np.testing.assert_array_equal(s.p_ckpt[:, 0].numpy(), s.p.numpy())
+        for name in lf.SubtreeState.BUFFERS:
+            torch.testing.assert_close(
+                getattr(s, name), getattr(twin, name), rtol=0, atol=0, equal_nan=True
+            )
+    assert lf.nuts_leaf_step.launches == before  # CPU: no kernel launch
+    assert int(s.n.max()) <= 3
+
+
+def test_leaf_state_on_cuda_without_card_raises():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is visible: nothing to refuse")
+    with pytest.raises(RuntimeError, match="cuda"):
+        _leaf(device=resolve_device("cuda"))
+
+
+def test_leaf_buffers_struct_matches_the_kernel_source():
+    """ctypes' _LeafBuffers and csrc/leapfrog.cu's LeafBuffers: the same
+    fields in the same order, pointers where the kernel has pointers (the
+    library also checks the sizes when the leaf kernel is first typed)."""
+    import ctypes
+    import os
+    import re
+
+    with open(os.path.join(_build.CSRC_DIR, "leapfrog.cu")) as f:
+        body = re.search(r"struct LeafBuffers \{(.*?)\n\};", f.read(), re.S).group(1)
+    fields = []
+    for decl in re.sub(r"//[^\n]*", "", body).split(";"):
+        m = re.fullmatch(r"\s*(?:const\s+)?(\w+)\s*(\*?)\s*([\w\s,]+?)\s*", decl)
+        if m is None:
+            assert not decl.strip(), decl
+            continue
+        kind = ctypes.c_void_p if m.group(2) else {"int64_t": ctypes.c_int64}[m.group(1)]
+        fields += [(name.strip(), kind) for name in m.group(3).split(",")]
+    assert fields == lf._LeafBuffers._fields_

@@ -6,6 +6,8 @@ replays the JAX package's key derivations (nuts.py:601-604 split, :637-639
 direction, :646 tree keys, :443-448 leaf uniforms, :656-658 merge
 uniforms), so both packages walk the same trees. Tolerance: (q, logp, grad)
 to rtol 1e-10 in float64; depth, n_steps and diverging exactly equal.
+Each leaf of the port runs `nuts_leaf_step` (its plain version on the CPU),
+so these cases hold the fused leaf's arithmetic against the JAX package.
 """
 
 import numpy as np
@@ -20,7 +22,8 @@ import pymc_tpu as pmj
 import pymc_tpu_torch as pmt
 from pymc_tpu.blocking import unravel_vector
 from pymc_tpu.sampling.nuts import nuts_transition_batched
-from pymc_tpu_torch.sampling.nuts import TorchDraws, nuts_transition, popcount
+from pymc_tpu_torch.ops.leapfrog import popcount
+from pymc_tpu_torch.sampling.nuts import TorchDraws, nuts_transition
 
 C = 8
 MAX_TREEDEPTH = 6
@@ -92,20 +95,21 @@ def _radon_target():
     )
 
 
-def _compare(D, logp_grad_j, logp_grad_t, q0, step, seed):
+def _compare(D, logp_grad_j, logp_grad_t, q0, step, seed, max_treedepth=MAX_TREEDEPTH):
+    """step: one step size for every chain, or one per chain."""
     keys = jax.random.split(jax.random.PRNGKey(seed), C)
     rng = np.random.default_rng(seed)
     inv_mass = rng.uniform(0.5, 1.5, size=(C, D))
-    step_size = np.full((C,), step)
+    step_size = np.broadcast_to(np.asarray(step, dtype=np.float64), (C,)).copy()
     logp0, grad0 = jax.vmap(logp_grad_j)(jnp.asarray(q0))
     (qj, lj, gj), sj = nuts_transition_batched(
         logp_grad_j, keys, jnp.asarray(q0), logp0, grad0, jnp.asarray(step_size),
-        jnp.asarray(inv_mass), max_treedepth=MAX_TREEDEPTH,
+        jnp.asarray(inv_mass), max_treedepth=max_treedepth,
     )
     t = torch.as_tensor
     (qt, lt, gt), st = nuts_transition(
         logp_grad_t, JaxKeyDraws(keys, D), t(q0), t(np.array(logp0)),
-        t(np.array(grad0)), t(step_size), t(inv_mass), max_treedepth=MAX_TREEDEPTH,
+        t(np.array(grad0)), t(step_size), t(inv_mass), max_treedepth=max_treedepth,
     )
     np.testing.assert_array_equal(st.depth.numpy(), np.asarray(sj.depth))
     np.testing.assert_array_equal(st.n_steps.numpy(), np.asarray(sj.n_steps))
@@ -132,6 +136,37 @@ def test_transition_matches_jax_radon(seed, step):
     D, lg_j, lg_t = _radon_target()
     q0 = np.random.default_rng(200 + seed).normal(0.0, 0.3, size=(C, D))
     _compare(D, lg_j, lg_t, q0, step, seed)
+
+
+# per-chain steps from 0.02 to 400: full-depth trees, U-turns at different
+# leaves, divergence at the first leaf and mid-subtree, in one batch
+MIXED_STEPS = [0.02, 0.028, 0.9, 5.0, 400.0, 0.3, 2.5, 0.03]
+
+
+@pytest.mark.parametrize(
+    "target, step, max_treedepth",
+    [("gaussian", MIXED_STEPS, MAX_TREEDEPTH), ("radon", MIXED_STEPS, MAX_TREEDEPTH),
+     ("radon", 0.003, 10)],
+    ids=["gaussian-mixed-steps", "radon-mixed-steps", "radon-depth-10"],
+)
+def test_transition_matches_jax_edge_batches(target, step, max_treedepth):
+    """The radon batch with mixed steps diverges mid-subtree (a tree with
+    fewer leaves than its depth allows); at depth 10 the deepest subtree
+    writes and checks every slot of the 11 it has."""
+    if target == "gaussian":
+        D, lg_j, lg_t = _gaussian_target()
+        q0 = np.random.default_rng(104).normal(size=(C, D))
+    else:
+        D, lg_j, lg_t = _radon_target()
+        q0 = np.random.default_rng(204).normal(0.0, 0.3, size=(C, D))
+    st = _compare(D, lg_j, lg_t, q0, step, 4, max_treedepth=max_treedepth)
+    depth, n_steps = st.depth.numpy(), st.n_steps.numpy()
+    assert depth.max() == max_treedepth  # a full tree: every checkpoint slot in use
+    if step is MIXED_STEPS:
+        assert st.diverging.any() and not st.diverging.all()
+        assert len(set(depth.tolist())) >= 3  # trees end at different depths
+    if target == "radon" and step is MIXED_STEPS:
+        assert (n_steps < 2**depth - 1).any()
 
 
 def test_huge_step_diverges_like_jax():

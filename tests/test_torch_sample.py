@@ -81,6 +81,12 @@ def test_sampler_health_and_counters(both):
     assert float(pmt.rhat(idata_t.posterior["mu"].values)) < 1.05
     assert attrs["n_leapfrog"] >= stats["tree_depth"].values.max(axis=0).sum()
     assert attrs["sampling_host_syncs"] > 0
+    # one subtree per doubling of each draw's deepest tree, tuning included
+    depth_max = stats["tree_depth"].values.max(axis=0)
+    assert attrs["n_subtrees"] >= depth_max.sum()
+    assert 1 <= attrs["n_step_search"] < attrs["n_leapfrog"] - attrs["n_subtrees"] + 1
+    # while drawing: one sync per leapfrog and per doubling, one per draw
+    assert attrs["sampling_host_syncs"] >= depth_max.sum() + len(depth_max)
     assert attrs["compile_time"] == 0  # no kernel is built for CPU tensors
 
 
