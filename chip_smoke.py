@@ -6,8 +6,9 @@ Phases, in order; any failure ends the script with a non-zero exit:
                 nvcc, one process each, started together; print ptxas's
                 register and shared-memory report
   3. kernels  — each kernel against its plain PyTorch version on the card:
-                the leapfrog pair at the (chains, D) of both sampled models
-                and at edges of its range, in float32 and float64,
+                the leapfrog pair at the (chains, D) of the three sampled
+                models (the stress GLM's (1024, 10004) among them) and at
+                edges of its range, in float32 and float64,
                 the fused NUTS leaf at the same shapes and dtypes from
                 states that hold every n from 0 to 2**10 - 1 and every
                 checkpoint slot, with inactive, turning and diverging rows
@@ -19,12 +20,14 @@ Phases, in order; any failure ends the script with a non-zero exit:
                 1 to 1000 in float32 and float64, on both sides of the
                 shared-memory limit, and on batches with indefinite
                 matrices; each timed with CUDA events at the sampler's
-                shapes, the Cholesky at (64, 150), (1024, 150) and (8, 500)
-                also against torch.linalg.cholesky_ex (the yardstick) and
+                shapes (the pair also at (1024, 10004)), the Cholesky at
+                (64, 150), (1024, 150) and (8, 500) also against
+                torch.linalg.cholesky_ex (the yardstick) and
                 torch.linalg.cholesky
-  4. logp     — the radon GLM's and the marginal GP's (C, D) -> (logp,
-                grad) on the card in float32 against the port on the CPU
-                in float64
+  4. logp     — the radon GLM's, the marginal GP's and the stress GLM's
+                (C, D) -> (logp, grad) on the card in float32 against the
+                port on the CPU in float64 (the stress GLM at its 1024
+                chains)
   5. sampling — pymc_tpu_torch.sample on bench.build_model at bench.py's
                 many-chain configuration cut in depth (64 chains, tune 200,
                 draws 128, pooled mass and step, target_accept 0.95,
@@ -37,7 +40,8 @@ Phases, in order; any failure ends the script with a non-zero exit:
                 the CPU) within 5 combined MCSE
   6. GP       — pymc_tpu_torch.sample on the marginal GP (BASELINE config
                 #4, n = 150) with benchmarks/suite.py::case_gp_marginal's
-                arguments (64 chains, tune 300, draws 300, pooled mass);
+                arguments cut in depth (64 chains, tune 200, draws 200,
+                pooled mass; pymc_tpu_torch.models.GP_SMOKE_KWARGS);
                 the Cholesky kernel must factor the covariance stack of
                 every batched logp+grad, the leapfrog kernels must carry
                 their leapfrogs as in phase 5, R-hat must be < 1.05 and the
@@ -45,11 +49,30 @@ Phases, in order; any failure ends the script with a non-zero exit:
                 eta and sigma must match
                 tests/data/torch_gp_marginal_reference.json within 5
                 combined MCSE
+  7. stress   — pymc_tpu_torch.sample with sampler="chees" on the stress
+                GLM (BASELINE config #3: 5,000 groups, 20,000
+                observations, 10,004 parameters) with
+                benchmarks/suite.py::case_stress_chees's arguments at 1024
+                chains with a longer warmup (tune 600 for 300, draws 128,
+                pooled mass and step, target_accept 0.95, var_names the
+                four hyperparameters;
+                pymc_tpu_torch.models.STRESS_SAMPLE_KWARGS); kick_drift and
+                final_kick must each carry every leapfrog (the step-size
+                search's and the sum of L over every draw), the leaf and
+                Cholesky kernels none; every draw finite, the posterior
+                exactly the four hyperparameters, their means within 5
+                combined MCSE of tests/data/torch_stress_reference.json,
+                and R-hat < 1.05 on mu_a, sd_a and mu_b, < 1.55 on sd_b
+                (see STRESS_RHAT_LIMIT); prints min-ESS/s,
+                grad-evals/s, time to R-hat < 1.01, the walls, mean L, the
+                final trajectory length, host syncs per draw and the peak
+                device memory
 
 Each sampling phase sets every kernel's launch count to 0 just before it
 samples and reads the counts just after. The line before the last is one
-JSON object with each kernel's launches (summed over both sampling phases),
-error, times and bound; the last line is {"ok": true, "device": {...}}.
+JSON object with each kernel's launches (summed over the three sampling
+phases), error, times and bound; the last line is {"ok": true, "device":
+{...}}.
 
 Usage:
     python3 chip_smoke.py
@@ -71,6 +94,17 @@ import torch  # noqa: E402
 
 REFERENCE = os.path.join(ROOT, "tests", "data", "torch_radon_reference.json")
 GP_REFERENCE = os.path.join(ROOT, "tests", "data", "torch_gp_marginal_reference.json")
+STRESS_REFERENCE = os.path.join(ROOT, "tests", "data", "torch_stress_reference.json")
+# The stress GLM's hyperparameters and the R-hat each is held below. sd_b's
+# limit is wider: with ChEES it has about 2 effective draws in each chain's
+# 128 (bulk ESS 2,212 to 2,831 over 1024 chains at tune 600 to 1000 on the
+# H100), and split R-hat^2 ~ 1 + 1 / (ESS per half chain) puts a sampler
+# that mixes this slowly near 1.3 however long it tunes; pymc_tpu's ChEES,
+# in the fixture's run, draws 0.031 effective draws of sd_b a draw, 4 in
+# 128. Converged runs read 1.28 to 1.40 on the H100 and unconverged ones
+# (tune 300) 1.70 to 1.80; 1.55 lies between. Its mean is held to the
+# reference within 5 combined MCSE like the others'.
+STRESS_RHAT_LIMIT = {"mu_a": 1.05, "sd_a": 1.05, "mu_b": 1.05, "sd_b": 1.55}
 KERNEL_SOURCE = "pymc_tpu_torch/csrc/leapfrog.cu"
 CHOL_SOURCE = "pymc_tpu_torch/csrc/cholesky.cu"
 # edges of the leapfrog kernels' range; the sampled models' own (chains, D)
@@ -110,8 +144,11 @@ def bound_ms(n_bytes, n_ops, dtype):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+T_START = time.perf_counter()
+
+
 def phase(name):
-    print(f"== {name}", flush=True)
+    print(f"== {name} (at {time.perf_counter() - T_START:.1f} s)", flush=True)
 
 
 def check_close(label, out, ref, rtol):
@@ -244,6 +281,13 @@ def sampled_shapes():
     ]
 
 
+def stress_shape():
+    """The (chains, D) that phase 7 hands the pair: (1024, 10004)."""
+    from pymc_tpu_torch.models import STRESS_SAMPLE_KWARGS, stress_glm_model
+
+    return (STRESS_SAMPLE_KWARGS["chains"], stress_glm_model().raveled_info().total_size)
+
+
 def check_kernels(card):
     """Phase 3: each kernel against its plain version on the card, then
     both timed. Returns (max abs errors over the sampled models' shapes in
@@ -251,7 +295,7 @@ def check_kernels(card):
     from pymc_tpu_torch.ops import leapfrog as lf
 
     phase("3 kernels against their plain versions")
-    path = sampled_shapes()
+    path = sampled_shapes() + [stress_shape()]
     print(f"sampled models' (chains, D): {path}")
     errs = {"kick_drift": 0.0, "final_kick": 0.0}
     for dtype in (torch.float32, torch.float64):
@@ -273,7 +317,7 @@ def check_kernels(card):
                 errs = {"kick_drift": max(errs["kick_drift"], e_kd),
                         "final_kick": max(errs["final_kick"], e_fk, e_ke)}
     times = {}
-    for C, D in TIMED_SHAPES:
+    for C, D in TIMED_SHAPES + [stress_shape()]:
         q, p, grad, im, eps = leapfrog_inputs(C, D, torch.float32, seed=1)
         ph = lf.kick_drift_plain(q, p, grad, im, eps)[1]
         calls = {
@@ -292,7 +336,20 @@ def check_kernels(card):
             print(f"({C}, {D}) float32 {k}: device ms "
                   f"{', '.join(f'{m[0]:.5f}' for m in v)}; host ms per call "
                   f"{', '.join(f'{m[1]:.5f}' for m in v)}  [{card}]")
+        for key, (b_ms, b_by) in pair_bounds(C, D).items():
+            print(f"({C}, {D}) float32 {key}: {times[(C, D)][key]:.5f} ms against a bound of "
+                  f"{b_ms:.7f} ms ({b_by})  [{card}]")
     return errs, times
+
+
+def pair_bounds(C, D):
+    """{kernel: (bound ms, by)} of the pair at (C, D) in float32: kick_drift
+    reads q, p, grad, inv_mass and eps and writes q' and p_half; final_kick
+    reads p_half, grad, inv_mass and eps and writes p' and ke."""
+    return {
+        "kick_drift": bound_ms(6 * C * D * 4 + 4 * C, 6 * C * D, torch.float32),
+        "final_kick": bound_ms(4 * C * D * 4 + 8 * C, 6 * C * D + C, torch.float32),
+    }
 
 
 LEAF_SLOTS = 10  # checkpoint slots: n < 2**10 writes and reads all ten
@@ -668,12 +725,12 @@ def check_cholesky(card):
     return err_main, times[CHOL_TIMED[0]]
 
 
-def check_logp_on_card(label, model):
-    """(C, D) -> (logp, grad) at 64 points, float32 on the card against
-    float64 on the CPU: logp max relative error < 1e-4, grad max abs error
-    < 1e-3 of the largest gradient entry."""
+def check_logp_on_card(label, model, chains=64):
+    """(C, D) -> (logp, grad) at `chains` points, float32 on the card
+    against float64 on the CPU: logp max relative error < 1e-4, grad max
+    abs error < 1e-3 of the largest gradient entry."""
     D = model.raveled_info().total_size
-    q_np = np.random.default_rng(0).normal(0.0, 0.5, size=(64, D))
+    q_np = np.random.default_rng(0).normal(0.0, 0.5, size=(chains, D))
     q_card = torch.as_tensor(q_np, device="cuda", dtype=torch.float32)
     lp_c, g_c = model.logp_dlogp_fn(device="cuda")(q_card)
     lp_r, g_r = model.logp_dlogp_fn(device="cpu")(torch.as_tensor(q_np))
@@ -688,13 +745,16 @@ def check_logp_on_card(label, model):
 
 
 def check_logp():
-    """Phase 4: the radon GLM's and the marginal GP's logp/grad on the card."""
+    """Phase 4: the radon GLM's, the marginal GP's and the stress GLM's
+    logp/grad on the card."""
     import pymc_tpu_torch as pm
-    from pymc_tpu_torch.models import gp_marginal_model
+    from pymc_tpu_torch.models import gp_marginal_model, stress_glm_model
 
     phase("4 logp/grad on the card")
     check_logp_on_card("radon", bench_module().build_model(pm))
     check_logp_on_card("GP marginal (n = 150)", gp_marginal_model(150))
+    C, _ = stress_shape()
+    check_logp_on_card(f"stress GLM ({C} chains)", stress_glm_model(), chains=C)
 
 
 def sample_counted(model, config):
@@ -790,11 +850,11 @@ def check_posterior(idata, launches, max_rhat):
 def run_gp(card):
     """Phase 6: sample the marginal GP on the card and check it; returns
     {kernel: launches}."""
-    from pymc_tpu_torch.models import GP_SAMPLE_KWARGS, GP_SCALARS, gp_marginal_model
+    from pymc_tpu_torch.models import GP_SCALARS, GP_SMOKE_KWARGS, gp_marginal_model
     from pymc_tpu_torch.stats.convergence import ess, grad_evals_per_sec, mcse_mean, rhat
 
     phase("6 GP marginal sampling")
-    idata, launches = sample_counted(gp_marginal_model(150), GP_SAMPLE_KWARGS)
+    idata, launches = sample_counted(gp_marginal_model(150), GP_SMOKE_KWARGS)
     post, stats = idata.posterior, idata.sample_stats
     wall = post.attrs["sampling_time"]
     n_leapfrog, n_calls = post.attrs["n_leapfrog"], post.attrs["n_logp_grad"]
@@ -829,24 +889,99 @@ def run_gp(card):
     return launches
 
 
-def kernel_records(launches, errs, times, leaf, chol_err, chol_times):
-    """The `kernels` line: every kernel with its launches on the main paths,
-    error against its plain version, times and bound at the sampler's shape."""
-    C, D = TIMED_SHAPES[0]
-    f32 = torch.float32
+def run_stress(card):
+    """Phase 7: sample the stress GLM with ChEES on the card and check it;
+    returns {kernel: launches}."""
+    from pymc_tpu_torch.models import STRESS_HYPERS, STRESS_SAMPLE_KWARGS, stress_glm_model
+    from pymc_tpu_torch.stats.convergence import (
+        ess, grad_evals_per_sec, mcse_mean, rhat, time_to_rhat,
+    )
+
+    phase("7 stress GLM sampling with ChEES")
+    model = stress_glm_model()
+    torch.cuda.reset_peak_memory_stats()
+    idata, launches = sample_counted(model, STRESS_SAMPLE_KWARGS)
+    peak = torch.cuda.max_memory_allocated()
+    post, stats, attrs = idata.posterior, idata.sample_stats, idata.posterior.attrs
+    chains, draws = STRESS_SAMPLE_KWARGS["chains"], STRESS_SAMPLE_KWARGS["draws"]
+    wall = attrs["sampling_time"]
+    n_steps = stats["n_steps"].values
+    search = attrs["n_step_search"]
+    # every leapfrog of the run: the step-size search's and L per draw, tuning
+    # included; of these the sampling draws' L are in n_steps
+    leapfrogs = attrs["n_leapfrog"]
+    tune_leapfrogs = leapfrogs - search - int(n_steps[0].sum())
+    ess_min = min(float(np.nanmin(ess(post[n].values))) for n in STRESS_HYPERS)
+    rhats = {n: float(np.nanmax(rhat(post[n].values))) for n in STRESS_HYPERS}
+    t_rhat = time_to_rhat(idata, var_names=list(STRESS_HYPERS))
+    mean_L = (leapfrogs - search) / (STRESS_SAMPLE_KWARGS["tune"] + draws)
+    print(f"min-ESS/s {ess_min / wall:.3f} (min ESS {ess_min:.1f}); grad-evals/s "
+          f"{grad_evals_per_sec(idata):.1f}; time to R-hat < 1.01 {t_rhat:.2f} s; sampling "
+          f"wall {wall:.2f} s; tuning wall {attrs['tuning_time']:.2f} s  [{card}]")
+    print(f"mean L {mean_L:.2f} over tuning and sampling, {float(n_steps.mean()):.2f} while "
+          f"drawing (min {int(n_steps.min())}, max {int(n_steps.max())}); final trajectory "
+          f"length {attrs['trajectory_length']:.5f}; step size "
+          f"{float(stats['step_size'].values[0, 0]):.5f}; mean acceptance "
+          f"{float(stats['acceptance_rate'].values.mean()):.4f}; divergences "
+          f"{int(stats['diverging'].values.sum())}  [{card}]")
+    print(f"host syncs while drawing {attrs['sampling_host_syncs']} "
+          f"({attrs['sampling_host_syncs'] / draws:.2f} per draw); peak device memory "
+          f"{peak / 2**30:.3f} GiB ({peak} B); R-hat "
+          + ", ".join(f"{n} {r:.4f} (< {STRESS_RHAT_LIMIT[n]})" for n, r in rhats.items())
+          + f"  [{card}]")
+    print(f"stress: leapfrogs {leapfrogs} = step-size search {search} + tuning "
+          f"{tune_leapfrogs} + sampling {int(n_steps[0].sum())}; logp+grad calls "
+          f"{attrs['n_logp_grad']}; launches {launches}")
+    expect = {"kick_drift": leapfrogs, "final_kick": leapfrogs, "nuts_leaf": 0, "cholesky": 0}
+    if not (tune_leapfrogs >= STRESS_SAMPLE_KWARGS["tune"] and launches == expect
+            and (n_steps == n_steps[:1]).all()):
+        raise AssertionError(f"stress launches {launches} != expected {expect}")
+    if sorted(post.keys()) != sorted(STRESS_HYPERS):
+        raise AssertionError(f"stress posterior holds {sorted(post.keys())}")
+    for name in STRESS_HYPERS:
+        if post[name].shape != (chains, draws):
+            raise AssertionError(f"{name} has shape {post[name].shape}")
+        if not np.isfinite(post[name].values).all():
+            raise AssertionError(f"non-finite draws in {name}")
+    with open(STRESS_REFERENCE) as f:
+        ref = json.load(f)["params"]
+    for name in STRESS_HYPERS:
+        x = post[name].values.astype(np.float64)
+        se = float(np.hypot(mcse_mean(x), ref[name]["mcse"]))
+        z = (float(x.mean()) - ref[name]["mean"]) / se
+        print(f"{name}: mean {float(x.mean()):.5f} (reference {ref[name]['mean']:.5f}), "
+              f"{z:+.2f} combined MCSE; R-hat {float(rhat(x)):.4f}; bulk ESS "
+              f"{float(ess(x)):.1f} ({float(ess(x)) / chains:.2f} per chain)")
+        if not abs(z) <= 5.0:
+            raise AssertionError(f"stress {name} posterior mean is {z:+.2f} MCSE off the reference")
+    for name, r in rhats.items():
+        if not r < STRESS_RHAT_LIMIT[name]:
+            raise AssertionError(f"stress {name} R-hat {r:.4f} >= {STRESS_RHAT_LIMIT[name]}")
+    return launches
+
+
+def pair_records(launches, errs, times, shape):
+    """The pair's records of the `kernels` line, timed at `shape`."""
     records = []
-    for key, name, line, n_bytes, n_ops in (
-        ("kick_drift", "leapfrog_kick_drift", 97, 6 * C * D * 4 + 4 * C, 6 * C * D),
-        ("final_kick", "leapfrog_final_kick", 123, 4 * C * D * 4 + 8 * C, 6 * C * D + C),
+    for (key, (b_ms, b_by)), name, line in zip(
+        pair_bounds(*shape).items(), ("leapfrog_kick_drift", "leapfrog_final_kick"), (97, 123),
     ):
-        b_ms, b_by = bound_ms(n_bytes, n_ops, f32)
         records.append({
             "name": name, "route": "cuda", "source": KERNEL_SOURCE,
             "replaces": f"pymc_tpu/ops/pallas_kernels.py:{line}",
             "launches": launches[key], "max_abs_err": errs[key],
-            "ms": times[(C, D)][key], "plain_ms": times[(C, D)][f"{key}_plain"],
+            "ms": times[shape][key], "plain_ms": times[shape][f"{key}_plain"],
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
         })
+    return records
+
+
+def kernel_records(launches, errs, times, leaf, chol_err, chol_times):
+    """The `kernels` line: every kernel with its launches on the main paths,
+    error against its plain version, times and bound at the shape that
+    launches it most: the pair at the stress GLM's (1024, 10004), the leaf
+    at the radon GLM's (64, 175), the Cholesky at the GP's (64, 150)."""
+    records = pair_records(launches, errs, times, stress_shape())
     leaf_err, leaf_times, (b_ms, b_by) = leaf
     records.append({
         "name": "nuts_leaf_step", "route": "cuda", "source": KERNEL_SOURCE,
@@ -866,7 +1001,6 @@ def kernel_records(launches, errs, times, leaf, chol_err, chol_times):
 
 
 def main():
-    t_start = time.perf_counter()
     card, kind = check_device()
     build_kernels()
     errs, times = check_kernels(card)
@@ -876,10 +1010,15 @@ def main():
     idata, launches, max_rhat = run_sampler(card)
     check_posterior(idata, launches, max_rhat)
     gp_launches = run_gp(card)
-    total = {k: launches[k] + gp_launches[k] for k in launches}
+    stress_launches = run_stress(card)
+    total = {k: launches[k] + gp_launches[k] + stress_launches[k] for k in launches}
     kernels = kernel_records(total, errs, times, leaf, chol_err, chol_times)
-    print(f"launches: radon {launches}; GP {gp_launches}")
-    print(f"total wall {time.perf_counter() - t_start:.1f} s")
+    print(f"launches: radon {launches}; GP {gp_launches}; stress {stress_launches}")
+    print(f"total wall {time.perf_counter() - T_START:.1f} s")
+    # the pair at the NUTS shape, where the kernels line held it until it
+    # moved to the stress GLM's (1024, 10004)
+    print(f"pair at the radon GLM's {TIMED_SHAPES[0]}: "
+          f"{json.dumps(pair_records(total, errs, times, TIMED_SHAPES[0]))}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({
         "ok": True,

@@ -1,12 +1,16 @@
 """pymc_tpu_torch — the PyTorch/CUDA port of pymc_tpu.
 
-Two slices so far. The radon-GLM main path of `bench.py`: the model graph,
-Normal and HalfCauchy with the log transform, jittered starting points,
-dual averaging and diagonal Welford adaptation, batched NUTS whose leapfrog
-runs through hand-written CUDA kernels on the card, and R-hat/ESS. The GP
-path: Gamma, HalfNormal, MvNormal, `gp.Marginal.marginal_likelihood` and
-`gp.Latent.prior` with the ExpQuad kernel algebra, whose covariance is
-factored by a hand-written batched Cholesky kernel on the card. The package
+Three slices so far. The radon-GLM main path of `bench.py`: the model
+graph, Normal and HalfCauchy with the log transform, jittered starting
+points, dual averaging and diagonal Welford adaptation, batched NUTS whose
+leapfrog runs through hand-written CUDA kernels on the card, and R-hat/ESS.
+The GP path: Gamma, HalfNormal, MvNormal, `gp.Marginal.marginal_likelihood`
+and `gp.Latent.prior` with the ExpQuad kernel algebra, whose covariance is
+factored by a hand-written batched Cholesky kernel on the card. The ChEES
+path: Bernoulli and `sample(..., sampler="chees")`, which samples the
+10,004-parameter stress GLM at 1024 chains through the leapfrog kernels,
+and `var_names`, which keeps the chosen variables on the card until they
+are postprocessed. The package
 imports torch and never jax; kernels are built at first use, never at
 import. Entry points run on the card unless `device="cpu"` is asked for.
 
@@ -20,12 +24,13 @@ import. Entry points run on the card unless `device="cpu"` is asked for.
 """
 
 from . import gp
-from .distributions import Gamma, HalfCauchy, HalfNormal, MvNormal, Normal
+from .distributions import Bernoulli, Gamma, HalfCauchy, HalfNormal, MvNormal, Normal
 from .model import Deterministic, Model
 from .sampling.mcmc import sample
 from .stats.convergence import ess, rhat
 
 __all__ = [
-    "Model", "Normal", "HalfNormal", "HalfCauchy", "Gamma", "MvNormal", "Deterministic",
+    "Model", "Normal", "HalfNormal", "HalfCauchy", "Gamma", "MvNormal", "Bernoulli",
+    "Deterministic",
     "gp", "sample", "rhat", "ess",
 ]

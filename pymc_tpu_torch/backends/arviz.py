@@ -2,16 +2,35 @@
 
 Counterpart of `pymc_tpu/backends/arviz.py::to_inference_data` (:52;
 reference pymc/backends/arviz.py:613): the posterior and sample_stats
-groups with the model's dims and coords, and the observed data.
+groups with the model's dims and coords, and the observed data; and the
+`var_names` subset of the posterior (`pymc_tpu/sampling/mcmc.py:977-985`).
 """
 
 from __future__ import annotations
+
+import logging
 
 import numpy as np
 
 from .inference_data import DataVar, Dataset, InferenceData
 
-__all__ = ["to_inference_data"]
+__all__ = ["select_var_names", "to_inference_data"]
+
+_log = logging.getLogger("pymc_tpu_torch")
+
+
+def select_var_names(available, var_names):
+    """The names of `available` (in its order) that `var_names` asks for;
+    names it asks for that are not there are warned about and left out."""
+    wanted = set(var_names)
+    known = set(available)
+    unknown = wanted - known
+    if unknown:
+        _log.warning(
+            f"var_names {sorted(unknown)} not found in the model "
+            f"(available: {sorted(known)}); they will be omitted"
+        )
+    return [n for n in available if n in wanted]
 
 
 def _var_dims(model, name, trailing_shape):

@@ -4,20 +4,26 @@ Counterpart of `pymc_tpu/config.py`. The JAX package picks float64 through
 JAX's x64 mode; here the float type follows the device: float64 on the CPU
 (the parity tests compare against the JAX package in x64), float32 on the
 card, where the samplers run. The default device is the card: a caller that
-means the CPU says `device="cpu"`.
+means the CPU says `device="cpu"`. The integer type of discrete values,
+`intX()`, is int64 on every device, as the JAX package's is in x64 mode.
 """
 
 from __future__ import annotations
 
 import torch
 
-__all__ = ["floatX", "resolve_device"]
+__all__ = ["floatX", "intX", "resolve_device"]
 
 
 def floatX(device=None) -> torch.dtype:
     """Default float type for `device` (default: the card): float32 on CUDA,
     float64 elsewhere."""
     return torch.float32 if resolve_device(device).type == "cuda" else torch.float64
+
+
+def intX() -> torch.dtype:
+    """Integer type of discrete values: int64 on every device."""
+    return torch.int64
 
 
 def resolve_device(device=None) -> torch.device:

@@ -1,9 +1,11 @@
 """Distributions of the PyTorch port."""
 
 from .continuous import Gamma, HalfCauchy, HalfNormal, Normal
-from .distribution import Continuous, Distribution
+from .discrete import Bernoulli
+from .distribution import Continuous, Discrete, Distribution
 from .multivariate import MvNormal
 
 __all__ = [
-    "Distribution", "Continuous", "Normal", "HalfNormal", "HalfCauchy", "Gamma", "MvNormal",
+    "Distribution", "Continuous", "Discrete", "Bernoulli", "Normal", "HalfNormal", "HalfCauchy",
+    "Gamma", "MvNormal",
 ]

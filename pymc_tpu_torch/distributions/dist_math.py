@@ -9,7 +9,7 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["check_parameters", "log_normal", "logpow"]
+__all__ = ["check_parameters", "log_normal", "logpow", "safe_log", "softplus"]
 
 _LOG_SQRT_2PI = 0.9189385332046727  # log(sqrt(2*pi))
 
@@ -26,6 +26,19 @@ def check_parameters(logp, *conditions):
 def log_normal(x, mean, std):
     """log N(x | mean, std^2)."""
     return -0.5 * ((x - mean) / std) ** 2 - torch.log(std) - _LOG_SQRT_2PI
+
+
+def safe_log(x):
+    """log x, -inf where x <= 0, with a NaN-free gradient there (reference
+    dist_math.py:72)."""
+    safe = torch.where(x > 0, x, 1.0)
+    return torch.where(x > 0, torch.log(safe), -torch.inf)
+
+
+def softplus(x):
+    """log(1 + e^x) as logaddexp(x, 0), the JAX package's `jax.nn.softplus`
+    (torch's own returns x itself above x = 20, 2e-9 off there)."""
+    return torch.logaddexp(x, x.new_zeros(()))
 
 
 def logpow(x, m):

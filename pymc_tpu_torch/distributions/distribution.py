@@ -17,10 +17,11 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..config import intX
 from ..graph import Node, as_node, evaluate
 from . import transforms as tr
 
-__all__ = ["Distribution", "Continuous"]
+__all__ = ["Distribution", "Continuous", "Discrete"]
 
 
 def as_param(x):
@@ -132,3 +133,18 @@ class Distribution:
 
 class Continuous(Distribution):
     is_discrete = False
+
+
+class Discrete(Distribution):
+    """Integer-valued: values are int64, and there is no default transform
+    (reference distribution.py:498)."""
+
+    is_discrete = True
+    support = "discrete"
+
+    @property
+    def dtype(self):
+        return intX()
+
+    def default_transform(self):
+        return None

@@ -110,6 +110,12 @@ class Model:
     def value_vars(self):
         return [rv.value_name for rv in self.free_RVs]
 
+    @property
+    def discrete_value_vars(self):
+        """The discrete free RVs, which gradient samplers cannot move
+        (pymc_tpu/model/core.py:297)."""
+        return [rv for rv in self.free_RVs if rv.dist.is_discrete]
+
     def add_named_variable(self, var, dims=None):
         if var.name in self.named_vars:
             raise ValueError(f"Variable name {var.name} already exists.")
@@ -130,12 +136,17 @@ class Model:
         (reference model/core.py:1907). A free RV gets its distribution's
         default transform."""
         if observed is not None:
-            arr = np.asarray(observed, dtype=np.float64)
-            if np.isnan(arr).any():
-                raise NotImplementedError(
-                    f"observed data of {name!r} has missing values; imputation "
-                    "is not ported"
-                )
+            # a discrete distribution keeps integer data (float data without
+            # NaN is cast to int64); continuous data is float64 at build time
+            # (reference pymc_tpu/model/core.py:508-515)
+            arr = np.asarray(observed)
+            if not (dist.is_discrete and np.issubdtype(arr.dtype, np.integer)):
+                if np.isnan(arr.astype(np.float64)).any():
+                    raise NotImplementedError(
+                        f"observed data of {name!r} has missing values; imputation "
+                        "is not ported"
+                    )
+                arr = arr.astype(np.int64 if dist.is_discrete else np.float64)
             np.broadcast_shapes(arr.shape, dist.shape)
             rv = ObservedRV(name, dist, arr, model=self)
             self.observed_RVs.append(rv)
@@ -214,7 +225,15 @@ class Model:
     def logp_dlogp_fn(self, device=None, dtype=None):
         """fn(q (C, D)) -> (logp (C,), grad (C, D)) over flat unconstrained
         points — the sampler-facing density (reference ValueGradFunction
-        core.py:142)."""
+        core.py:142). A discrete free RV raises: the JAX package samples
+        it with compound step methods, which this port does not have yet."""
+        if self.discrete_value_vars:
+            names = [rv.value_name for rv in self.discrete_value_vars]
+            raise NotImplementedError(
+                f"Gradient-based samplers need continuous free variables only; "
+                f"found discrete {names}. They need compound step methods, "
+                "which pymc_tpu_torch does not have yet."
+            )
         info = self.raveled_info()
         scalar_logp = self.logp_fn(device, dtype)
         value_and_grad = torch.func.vmap(

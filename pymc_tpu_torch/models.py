@@ -2,10 +2,13 @@
 
 `gp_marginal_model` is BASELINE config #4 in the form the JAX package
 benchmarks (`benchmarks/suite.py::case_gp_marginal`): a marginal GP with an
-`eta**2 * ExpQuad` kernel and Gaussian noise on n sorted inputs. Each
-builder takes the package to build with (`pymc_tpu_torch` by default), so
-the reference package builds the same model from the same data. The radon
-GLM's builder is `bench.build_model`; its sampling arguments are here.
+`eta**2 * ExpQuad` kernel and Gaussian noise on n sorted inputs.
+`stress_glm_model` is BASELINE config #3 (`suite.py::_stress_model`): the
+hierarchical logistic GLM with 10,004 free parameters that
+`suite.py::case_stress_chees` samples with ChEES. Each builder takes the
+package to build with (`pymc_tpu_torch` by default), so the reference
+package builds the same model from the same data. The radon GLM's builder
+is `bench.build_model`; its sampling arguments are here.
 """
 
 from __future__ import annotations
@@ -13,7 +16,9 @@ from __future__ import annotations
 import numpy as np
 
 __all__ = [
-    "gp_data", "gp_marginal_model", "GP_SAMPLE_KWARGS", "GP_SCALARS", "RADON_SAMPLE_KWARGS",
+    "gp_data", "gp_marginal_model", "GP_SAMPLE_KWARGS", "GP_SMOKE_KWARGS", "GP_SCALARS",
+    "RADON_SAMPLE_KWARGS",
+    "stress_glm_model", "STRESS_HYPERS", "STRESS_SAMPLE_KWARGS",
 ]
 
 # bench.py's many-chain configuration (pooled mass and step, target_accept
@@ -26,6 +31,11 @@ RADON_SAMPLE_KWARGS = dict(
 
 # case_gp_marginal's keyword arguments to `sample` at 64 chains
 GP_SAMPLE_KWARGS = dict(draws=300, tune=300, chains=64, random_seed=0, mass_adapt="pooled")
+# chip_smoke.py's, cut in depth to tune 200 / draws 200: with the stress GLM
+# the script took 990 s uncut on the H100's slower hosts, against a 1,200 s
+# limit. The stress phase's depth, to be cut first, cannot be: tune 600 is
+# the least that converges it, and its 128 draws take some 35 s
+GP_SMOKE_KWARGS = dict(GP_SAMPLE_KWARGS, draws=200, tune=200)
 GP_SCALARS = ("ls", "eta", "sigma")
 
 
@@ -50,4 +60,49 @@ def gp_marginal_model(n=150, pm=None):
         gp = pm.gp.Marginal(cov_func=eta**2 * pm.gp.cov.ExpQuad(1, ls=ls))
         sigma = pm.HalfNormal("sigma", 1)
         gp.marginal_likelihood("y", X=X, y=y, sigma=sigma)
+    return m
+
+
+STRESS_HYPERS = ("mu_a", "sd_a", "mu_b", "sd_b")
+
+# case_stress_chees's keyword arguments to `sample` at its many-chain count
+# (1024 chains: pooled mass and step, target_accept 0.95, draws 128, only
+# the four hyperparameters kept), with tune 600 for its 300. 300 tuning
+# draws do not converge this model with ChEES in either package: pymc_tpu
+# at 64 chains (CPU, float64, seeds 0 and 1) ends them with R-hat 1.14-2.99
+# on the four and step 0.040 / 0.026; the port ends them at step
+# 0.025-0.027 at 64, 256 and 1024 chains, in float32 and float64, and at
+# 1024 chains the first 128 draws put sd_a some 7 MCSE below its later mean
+# with R-hat up to 1.75. From tune 600 on the means settle (PERF.md §6)
+STRESS_SAMPLE_KWARGS = dict(
+    chains=1024, tune=600, draws=128, random_seed=0, mass_adapt="pooled",
+    step_adapt="pooled", target_accept=0.95, sampler="chees", var_names=STRESS_HYPERS,
+)
+
+
+def stress_glm_model(n_groups=5000, n_obs=20000, seed=0, pm=None):
+    """mu_a, mu_b ~ Normal(0, 1), sd_a, sd_b ~ HalfNormal(1), a_t, b_t ~
+    Normal(0, 1) per group (non-centred); y ~ Bernoulli(logit_p = a[g] +
+    b[g] x) on n_obs observations drawn from numpy's generator at `seed`,
+    the data of `benchmarks/suite.py::_stress_model`. 2 n_groups + 4 free
+    parameters."""
+    if pm is None:
+        import pymc_tpu_torch as pm
+    rng = np.random.default_rng(seed)
+    g = rng.integers(0, n_groups, n_obs)
+    x = rng.normal(size=n_obs)
+    true_a = rng.normal(0, 0.5, n_groups)
+    true_b = rng.normal(0.3, 0.2, n_groups)
+    logits = true_a[g] + true_b[g] * x
+    y = (rng.uniform(size=n_obs) < 1 / (1 + np.exp(-logits))).astype(int)
+    with pm.Model() as m:
+        mu_a = pm.Normal("mu_a", 0, 1)
+        sd_a = pm.HalfNormal("sd_a", 1)
+        mu_b = pm.Normal("mu_b", 0, 1)
+        sd_b = pm.HalfNormal("sd_b", 1)
+        a_t = pm.Normal("a_t", 0, 1, shape=(n_groups,))
+        b_t = pm.Normal("b_t", 0, 1, shape=(n_groups,))
+        a = mu_a + sd_a * a_t
+        b = mu_b + sd_b * b_t
+        pm.Bernoulli("y", logit_p=a[g] + b[g] * x, observed=y)
     return m

@@ -1,11 +1,15 @@
 """pymc_tpu_torch.sample end to end on the CPU against pymc_tpu.sample.
 
-Eight Schools, 4 chains, in float64. The two packages draw different random
-numbers, so the posteriors are compared by their means: each within 4
-combined MCSE (sqrt(mcse_torch^2 + mcse_jax^2)) of the other. The
-InferenceData must have the same variables, dims and sample_stats fields.
+Eight Schools in float64, with NUTS (4 chains) and with ChEES (8 chains,
+pooled mass). The two packages draw different random numbers, so the
+posteriors are compared by their means: each within 4 combined MCSE
+(sqrt(mcse_torch^2 + mcse_jax^2)) of the other. The InferenceData must have
+the same variables, dims and sample_stats fields. Then ChEES's number of
+leapfrogs, jittered draw to draw, and `var_names`. NUTS on the small stress
+GLM is in test_torch_discrete.py.
 """
 
+import logging
 import subprocess
 import sys
 
@@ -16,6 +20,7 @@ import torch
 import pymc_tpu as pmj
 import pymc_tpu_torch as pmt
 from pymc_tpu_torch.initial_point import make_initial_points_per_chain
+from pymc_tpu_torch.sampling import mcmc
 from pymc_tpu_torch.stats.convergence import mcse_mean
 
 
@@ -104,6 +109,97 @@ def test_bad_arguments_raise():
         pmt.sample(model=model, mass_adapt="full", device="cpu")
     with pytest.raises(ValueError, match="draws"):
         pmt.sample(model=model, draws=0, device="cpu")
+    for pm in (pmj, pmt):
+        with pytest.raises(ValueError, match="Unknown sampler 'foo'"):
+            kw = {"progressbar": False} if pm is pmj else {"device": "cpu"}
+            pm.sample(model=eight_schools(pm), draws=2, tune=2, sampler="foo", **kw)
+
+
+def _means_agree(idata_j, idata_t, names, z_max=4.0):
+    for name in names:
+        xj = idata_j.posterior[name].values
+        xt = idata_t.posterior[name].values
+        assert xt.shape == xj.shape and np.isfinite(xt).all()
+        se = np.hypot(mcse_mean(xj), mcse_mean(xt))
+        z = np.abs(xt.mean(axis=(0, 1)) - xj.mean(axis=(0, 1))) / se
+        assert np.all(z < z_max), (name, z)
+
+
+CHEES_CONFIG = dict(draws=300, tune=300, chains=8, random_seed=42, sampler="chees",
+                    mass_adapt="pooled", compute_convergence_checks=False)
+
+
+@pytest.fixture(scope="module")
+def both_chees():
+    idata_j = pmj.sample(model=eight_schools(pmj), progressbar=False, **CHEES_CONFIG)
+    idata_t = pmt.sample(model=eight_schools(pmt), device="cpu", **CHEES_CONFIG)
+    return idata_j, idata_t
+
+
+def test_chees_posterior_means_agree(both_chees):
+    idata_j, idata_t = both_chees
+    _means_agree(idata_j, idata_t, ["mu", "tau", "theta_t", "theta"])
+    assert set(idata_t.sample_stats.keys()) == set(idata_j.sample_stats.keys())
+    assert abs(idata_t.posterior["mu"].values.mean() - 4.4) < 0.8
+    assert float(np.nanmax(pmt.rhat(idata_t.posterior["mu"].values))) < 1.05
+
+
+def test_chees_counters(both_chees):
+    _, idata_t = both_chees
+    attrs, n_steps = idata_t.posterior.attrs, idata_t.sample_stats["n_steps"].values
+    assert attrs["sampler"] == "chees" and attrs["n_subtrees"] == 0
+    # one host read of the number of leapfrogs per draw
+    assert attrs["sampling_host_syncs"] == CHEES_CONFIG["draws"]
+    # every chain takes the same number of leapfrogs in a draw
+    assert (n_steps == n_steps[:1]).all()
+    assert attrs["n_leapfrog"] > n_steps[0].sum() + attrs["n_step_search"]
+    assert attrs["n_logp_grad"] == attrs["n_leapfrog"] + 2
+    depth = idata_t.sample_stats["tree_depth"].values
+    np.testing.assert_array_equal(depth, np.ceil(np.log2(n_steps + 1.0)))
+
+
+def test_chees_trajectory_adapts():
+    """tests/sampling/test_chees.py::test_trajectory_adapts on the port: the
+    jittered number of leapfrogs varies draw to draw and exceeds 1 on
+    average, and the draws recover the covariance."""
+    cov = np.array([[1.0, 0.95], [0.95, 1.0]])
+    with pmt.Model() as m:
+        pmt.MvNormal("x", mu=np.zeros(2), cov=cov)
+    idata = pmt.sample(draws=300, tune=400, chains=16, model=m, random_seed=1,
+                       compute_convergence_checks=False, sampler="chees", device="cpu")
+    n_steps = idata.sample_stats["n_steps"].values
+    assert n_steps.mean() > 2
+    assert np.unique(n_steps).size > 3
+    x = idata.posterior["x"].values
+    np.testing.assert_allclose(np.cov(x.reshape(-1, 2).T), cov, atol=0.12)
+
+
+def test_var_names_subset_on_the_device(monkeypatch, caplog):
+    model = eight_schools(pmt)
+    cfg = dict(CONFIG, draws=7, tune=5)
+    full = pmt.sample(model=model, device="cpu", **cfg)
+    # chunks of 5 rows: 7 draws x 4 chains split unevenly
+    monkeypatch.setattr(mcmc, "_POST_CHUNK", 5)
+    with caplog.at_level(logging.WARNING, logger="pymc_tpu_torch"):
+        sub = pmt.sample(model=model, device="cpu", var_names=["theta", "mu", "nope"], **cfg)
+    assert "['nope'] not found in the model" in caplog.text
+    assert list(sub.posterior.keys()) == ["mu", "theta"]
+    for name in ("mu", "theta"):
+        assert sub.posterior[name].dims == full.posterior[name].dims
+        np.testing.assert_array_equal(sub.posterior[name].values, full.posterior[name].values)
+    np.testing.assert_array_equal(
+        sub.sample_stats["n_steps"].values, full.sample_stats["n_steps"].values
+    )
+
+
+def test_var_names_warning_matches_jax(caplog):
+    cfg = dict(CONFIG, draws=3, tune=3, var_names=["mu", "nope"])
+    with caplog.at_level(logging.WARNING):
+        idata_j = pmj.sample(model=eight_schools(pmj), progressbar=False, **cfg)
+        idata_t = pmt.sample(model=eight_schools(pmt), device="cpu", **cfg)
+    assert list(idata_t.posterior.keys()) == list(idata_j.posterior.keys()) == ["mu"]
+    messages = [r.getMessage() for r in caplog.records if "not found" in r.getMessage()]
+    assert len(messages) == 2 and messages[0] == messages[1]
 
 
 def _run(code):
