@@ -67,12 +67,29 @@ Phases, in order; any failure ends the script with a non-zero exit:
                 grad-evals/s, time to R-hat < 1.01, the walls, mean L, the
                 final trajectory length, host syncs per draw and the peak
                 device memory
+  8. SMC      — pymc_tpu_torch.sample_smc on BASELINE config #5
+                (benchmarks/suite.py::case_smc's bimodal mixture, 120
+                observations) with the suite's arguments (2000 draws, 4
+                chains, IMH, threshold 0.5, correlation_threshold 0.01;
+                pymc_tpu_torch.models.SMC_SAMPLE_KWARGS) at seeds 0-4,
+                then once with MH at seed 0; every chain must reach beta =
+                1 with every particle finite, the Cholesky kernel must
+                factor the particle covariances once a stage and no other
+                kernel run; the posterior means of mu and w and the mean
+                log marginal likelihood over the 20 IMH chains must lie
+                within SMC_Z combined standard errors (each side's from its
+                spread between chains) of tests/data/torch_smc_reference.json
+                (made by pymc_tpu on the CPU), MH's mean of mu too; prints
+                each run's wall, stages, sweeps a stage, acceptance and
+                host reads a stage, and the kernels of one sweep (profiled)
 
-Each sampling phase sets every kernel's launch count to 0 just before it
-samples and reads the counts just after. The line before the last is one
-JSON object with each kernel's launches (summed over the three sampling
-phases), error, times and bound; the last line is {"ok": true, "device":
-{...}}.
+Phase 3 also checks and times the Cholesky at SMC's (4, 3) stack, and
+phase 4 compares the two mixture models' logp/grad and SMC's tempered
+density on the card with the CPU. Each sampling phase sets every kernel's
+launch count to 0 just before it samples and reads the counts just after.
+The line before the last is one JSON object with each kernel's launches
+(summed over the four sampling phases), error, times and bound; the last
+line is {"ok": true, "device": {...}}.
 
 Usage:
     python3 chip_smoke.py
@@ -95,6 +112,11 @@ import torch  # noqa: E402
 REFERENCE = os.path.join(ROOT, "tests", "data", "torch_radon_reference.json")
 GP_REFERENCE = os.path.join(ROOT, "tests", "data", "torch_gp_marginal_reference.json")
 STRESS_REFERENCE = os.path.join(ROOT, "tests", "data", "torch_stress_reference.json")
+SMC_REFERENCE = os.path.join(ROOT, "tests", "data", "torch_smc_reference.json")
+# SMC's estimates differ from run to run: a mean over chains is held within
+# this many combined standard errors, each from its side's between-chain
+# spread (20 chains of pymc_tpu's, 20 of the port's IMH, 4 of its MH run)
+SMC_Z = 5.0
 # The stress GLM's hyperparameters and the R-hat each is held below. sd_b's
 # limit is wider: with ChEES it has about 2 effective draws in each chain's
 # 128 (bulk ESS 2,212 to 2,831 over 1024 chains at tune 600 to 1000 on the
@@ -121,14 +143,16 @@ SCALARS = ("mu_a", "mu_b", "sigma_a", "sigma_b", "sigma_y")
 # n = 224 (float64), beyond that in a device workspace
 CHOL_SHAPES = [
     (64, 150, torch.float32), (64, 150, torch.float64), (1, 1, torch.float32),
+    (4, 3, torch.float32), (4, 3, torch.float64),
     (7, 13, torch.float32), (3, 160, torch.float32), (1024, 150, torch.float32),
     (8, 161, torch.float32), (4, 256, torch.float32), (2, 320, torch.float32),
     (2, 321, torch.float32), (8, 500, torch.float32), (2, 1000, torch.float32),
     (4, 161, torch.float64), (3, 224, torch.float64), (2, 225, torch.float64),
     (2, 300, torch.float64),
 ]
-# (C, n) timed in float32, the GP path's first; indefinite batches at these n
-CHOL_TIMED = [(64, 150), (1024, 150), (8, 500)]
+# (C, n) timed in float32, the GP path's first, SMC's particle covariances
+# last; indefinite batches at these n
+CHOL_TIMED = [(64, 150), (1024, 150), (8, 500), (4, 3)]
 CHOL_INDEFINITE = [150, 300, 500]
 # |L - L_plain| <= tol * n * max|L_plain|: float32 is tests/ops/test_linalg.py's bound
 CHOL_TOL = {torch.float32: 2e-5, torch.float64: 1e-12}
@@ -655,7 +679,7 @@ def check_cholesky(card):
     CHOL_SHAPES and on batches with indefinite matrices, each call one
     launch, then timed at CHOL_TIMED in float32 against its plain version,
     torch.linalg.cholesky_ex and torch.linalg.cholesky. Returns (max abs
-    error at (64, 150) float32, {name: median ms} at (64, 150))."""
+    error at (64, 150) float32, {(C, n): {name: median ms}})."""
     from pymc_tpu_torch.ops import linalg as la
 
     phase("3 cholesky kernel against its plain version")
@@ -722,7 +746,7 @@ def check_cholesky(card):
         print(f"({C}, {n}) float32 cholesky: kernel {times[(C, n)]['kernel']:.5f} ms, "
               f"cholesky_ex {times[(C, n)]['library']:.5f} ms, bound {b_ms:.7f} ms "
               f"({b_by})  [{card}]")
-    return err_main, times[CHOL_TIMED[0]]
+    return err_main, times
 
 
 def check_logp_on_card(label, model, chains=64):
@@ -745,21 +769,63 @@ def check_logp_on_card(label, model, chains=64):
 
 
 def check_logp():
-    """Phase 4: the radon GLM's, the marginal GP's and the stress GLM's
-    logp/grad on the card."""
+    """Phase 4: the radon GLM's, the marginal GP's, the stress GLM's and the
+    two mixture models' logp/grad on the card, and SMC's tempered
+    density."""
     import pymc_tpu_torch as pm
-    from pymc_tpu_torch.models import gp_marginal_model, stress_glm_model
+    from pymc_tpu_torch.models import (
+        gp_marginal_model, mixture_model, smc_mixture_model, stress_glm_model,
+    )
 
     phase("4 logp/grad on the card")
     check_logp_on_card("radon", bench_module().build_model(pm))
     check_logp_on_card("GP marginal (n = 150)", gp_marginal_model(150))
     C, _ = stress_shape()
     check_logp_on_card(f"stress GLM ({C} chains)", stress_glm_model(), chains=C)
+    check_logp_on_card("SMC mixture (config #5)", smc_mixture_model())
+    check_logp_on_card("mixture (case_mixture)", mixture_model())
+    check_smc_density()
 
 
-def sample_counted(model, config):
-    """pm.sample on the card with every kernel's launch count set to 0 just
-    before and read just after; returns (idata, {kernel: launches})."""
+def check_smc_density():
+    """SMC's (prior, likelihood) logps on the card in float32 against the
+    CPU in float64, at as many points as one run has particles: points of
+    the unconstrained space (every one valid) and the card's prior draws,
+    of which those whose mu came out ascending are valid (the others have
+    no ordered value). A valid point must get a finite prior logp: the
+    float32 sum of w must stay within Dirichlet's and Mixture's 1e-6 of
+    1."""
+    from pymc_tpu_torch.models import SMC_SAMPLE_KWARGS, smc_mixture_model
+    from pymc_tpu_torch.smc.sampling import prior_particles, tempered_density
+
+    model = smc_mixture_model()
+    n = SMC_SAMPLE_KWARGS["draws"] * SMC_SAMPLE_KWARGS["chains"]
+    on_card = tempered_density(model, "cuda", torch.float32)
+    on_cpu = tempered_density(model, "cpu", torch.float64)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    q_prior = prior_particles(model, n, gen, "cuda", torch.float32)
+    q_free = torch.as_tensor(np.random.default_rng(0).normal(0.0, 2.0, size=(n, 3)),
+                             device="cuda", dtype=torch.float32)
+    for label, q in (("unconstrained points", q_free), ("prior draws", q_prior)):
+        prior_c, like_c = (x.double().cpu() for x in on_card(q))
+        prior_r, like_r = on_cpu(q.double().cpu())
+        valid = torch.isfinite(prior_r)
+        if q is q_free and not bool(valid.all()):
+            raise AssertionError("SMC prior logp is not finite at every unconstrained point")
+        bad = int((valid & ~torch.isfinite(prior_c)).sum())
+        err = max(float(((a - b).abs() / (b.abs() + 1.0))[valid].max())
+                  for a, b in ((prior_c, prior_r), (like_c, like_r)))
+        print(f"SMC tempered density, {label}: {int(valid.sum())} of {n} valid, "
+              f"{bad} with a non-finite prior logp on the card; max rel err {err:.3e} "
+              f"(tol 1e-4)")
+        if bad or not err < 1e-4 or not bool(torch.isfinite(like_c[valid]).all()):
+            raise AssertionError(f"SMC tempered density on the card disagrees ({label})")
+
+
+def sample_counted(model, config, sampler=None):
+    """`sampler` (default pm.sample) on the card with every kernel's launch
+    count set to 0 just before and read just after; returns (idata,
+    {kernel: launches})."""
     import pymc_tpu_torch as pm
     from pymc_tpu_torch.ops import leapfrog as lf
     from pymc_tpu_torch.ops import linalg as la
@@ -772,7 +838,8 @@ def sample_counted(model, config):
     }
     for w in wrappers.values():
         w.launches = 0
-    idata = pm.sample(model=model, device="cuda", compute_convergence_checks=False, **config)
+    idata = (sampler or pm.sample)(model=model, device="cuda", compute_convergence_checks=False,
+                                   **config)
     return idata, {k: w.launches for k, w in wrappers.items()}
 
 
@@ -960,6 +1027,125 @@ def run_stress(card):
     return launches
 
 
+def run_smc_once(model, config, card):
+    """One sample_smc run on the card, counted and checked: every chain at
+    beta = 1, every particle finite, one Cholesky launch a stage and no
+    other kernel. Returns (idata, {kernel: launches}, wall s)."""
+    import pymc_tpu_torch as pm
+
+    t0 = time.perf_counter()
+    idata, launches = sample_counted(model, dict(config, progressbar=False), pm.sample_smc)
+    wall = time.perf_counter() - t0
+    attrs, stats = idata.posterior.attrs, idata.sample_stats
+    stages = attrs["n_stages"]
+    sweeps = np.array(attrs["n_steps_history"])
+    label = f"SMC {attrs['kernel']} seed {config['random_seed']}"
+    print(f"{label}: wall {wall:.3f} s (stage loop {attrs['sampling_time']:.3f} s); "
+          f"{stages} stages; sweeps a stage (max over chains) "
+          f"{sweeps.max(axis=1).tolist()}, mean {float(sweeps.mean()):.2f}; final acceptance "
+          f"{np.round(stats['accept_rate'].values[:, 0], 4).tolist()}, mean over stages "
+          f"{float(np.mean(attrs['accept_rate_history'])):.4f}; host reads "
+          f"{attrs['sampling_host_syncs']} ({attrs['sampling_host_syncs'] / stages:.2f} a stage); "
+          f"log marginal likelihood "
+          f"{np.round(stats['log_marginal_likelihood'].values[:, 0], 4).tolist()}; "
+          f"launches {launches}  [{card}]")
+    expect = {"kick_drift": 0, "final_kick": 0, "nuts_leaf": 0, "cholesky": stages}
+    if launches != expect:
+        raise AssertionError(f"{label}: launches {launches} != expected {expect}")
+    if not (stats["beta"].values == 1.0).all():
+        raise AssertionError(f"{label}: chains short of beta = 1: {stats['beta'].values[:, 0]}")
+    for name in ("mu", "w"):
+        if not np.isfinite(idata.posterior[name].values).all():
+            raise AssertionError(f"{label}: non-finite particles in {name}")
+    if attrs["device"] != "cuda":
+        raise AssertionError(f"{label} ran on {attrs['device']}")
+    return idata, launches, wall
+
+
+def smc_z(label, name, ours, ref):
+    """Combined-standard-error distance of a mean over chains from the
+    fixture's, printed; fails beyond SMC_Z."""
+    ours = np.asarray(ours, dtype=np.float64)
+    se = float(np.hypot(ours.std(ddof=1) / np.sqrt(len(ours)), ref["se"]))
+    z = (float(ours.mean()) - ref["mean"]) / se
+    print(f"{label} {name}: mean {ours.mean():.6f} over {len(ours)} chains (reference "
+          f"{ref['mean']:.6f}), {z:+.2f} combined standard errors")
+    if not abs(z) <= SMC_Z:
+        raise AssertionError(f"{label} {name} is {z:+.2f} standard errors off the reference")
+
+
+def smc_kernels_per_sweep(card):
+    """Kernels of one IMH sweep and of the rest of a stage: one stage from
+    the prior with the loop capped at 1 and at 2 sweeps (the Pearson rule
+    never stops a chain after its first sweep), same state and draws, each
+    profiled; the difference is one sweep with its host read."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from pymc_tpu_torch.models import SMC_SAMPLE_KWARGS, smc_mixture_model
+    from pymc_tpu_torch.sampling.chees import HostReads
+    from pymc_tpu_torch.smc import kernels as sk
+    from pymc_tpu_torch.smc.sampling import prior_particles, tempered_density
+
+    model = smc_mixture_model()
+    C, N = SMC_SAMPLE_KWARGS["chains"], SMC_SAMPLE_KWARGS["draws"]
+    fn = tempered_density(model, "cuda", torch.float32)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    state = sk.smc_init(prior_particles(model, C * N, gen, "cuda", torch.float32)
+                        .reshape(C, N, -1), fn)
+    kernels = {}
+    for steps in (1, 2, 1, 2):
+        draws = sk.TorchSMCDraws(torch.Generator(device="cuda").manual_seed(1), torch.float32,
+                                 torch.device("cuda"))
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            out = sk.smc_stage(sk.IMH(max_steps=steps), fn, state, draws, HostReads())
+            torch.cuda.synchronize()
+        if not bool((out.n_steps == steps).all()):
+            raise AssertionError(f"SMC profile: {out.n_steps.tolist()} sweeps, not {steps}")
+        kernels[steps] = sum(e.count for e in prof.key_averages()
+                             if e.device_type == torch.autograd.DeviceType.CUDA)
+    sweep = kernels[2] - kernels[1]
+    print(f"SMC kernels: one IMH sweep {sweep} (with its host read), the rest of a stage "
+          f"{kernels[1] - sweep} (the beta bisection, resample, covariance and Cholesky); "
+          f"stage capped at 1 sweep {kernels[1]}, at 2 {kernels[2]}  [{card}]")
+    return sweep
+
+
+def run_smc(card):
+    """Phase 8: sample_smc on config #5 at SMC_SEEDS with IMH and at seed 0
+    with MH, checked against the pymc_tpu fixture; returns {kernel:
+    launches} summed over the runs."""
+    from pymc_tpu_torch.models import (
+        SMC_SAMPLE_KWARGS, SMC_SEEDS, smc_chain_estimates, smc_mixture_model,
+    )
+
+    phase("8 SMC on the bimodal mixture (config #5)")
+    with open(SMC_REFERENCE) as f:
+        ref = json.load(f)["params"]
+    model = smc_mixture_model()
+    total, chains, walls, lml = None, {}, [], []
+    for seed in SMC_SEEDS:
+        idata, launches, wall = run_smc_once(model, dict(SMC_SAMPLE_KWARGS, random_seed=seed),
+                                             card)
+        total = launches if total is None else {k: total[k] + launches[k] for k in total}
+        walls.append(wall)
+        for name, values in smc_chain_estimates(idata).items():
+            chains.setdefault(name, []).extend(values.tolist())
+    lml = np.array(chains["log_marginal_likelihood"])
+    print(f"SMC IMH over seeds {list(SMC_SEEDS)}: wall a run {np.round(walls, 3).tolist()} s; "
+          f"log marginal likelihood {lml.mean():.4f} (sd {lml.std(ddof=1):.4f}, min "
+          f"{lml.min():.4f}, max {lml.max():.4f}) over {len(lml)} chains  [{card}]")
+    for name, values in chains.items():
+        smc_z("SMC IMH", name, values, ref[name])
+    idata, launches, _ = run_smc_once(model, dict(SMC_SAMPLE_KWARGS, kernel="mh"), card)
+    total = {k: total[k] + launches[k] for k in total}
+    mh = smc_chain_estimates(idata)
+    for name in ("mu[0]", "mu[1]"):
+        smc_z("SMC MH", name, mh[name], ref[name])
+    smc_kernels_per_sweep(card)
+    return total
+
+
 def pair_records(launches, errs, times, shape):
     """The pair's records of the `kernels` line, timed at `shape`."""
     records = []
@@ -990,14 +1176,20 @@ def kernel_records(launches, errs, times, leaf, chol_err, chol_times):
         "plain_ms": leaf_times["nuts_leaf_plain"][0], "bound_ms": b_ms, "bound_by": b_by,
         "library_ms": None,
     })
-    b_ms, b_by = chol_bound(*CHOL_TIMED[0])
-    records.append({
+    records.append(chol_record(launches, chol_err, chol_times, CHOL_TIMED[0]))
+    return records
+
+
+def chol_record(launches, chol_err, chol_times, shape):
+    """The Cholesky's record of the `kernels` line, timed at `shape`."""
+    b_ms, b_by = chol_bound(*shape)
+    t = chol_times[shape]
+    return {
         "name": "cholesky_batched", "route": "cuda", "source": CHOL_SOURCE,
         "replaces": "pymc_tpu/ops/linalg.py:137", "launches": launches["cholesky"],
-        "max_abs_err": chol_err, "ms": chol_times["kernel"], "plain_ms": chol_times["plain"],
-        "bound_ms": b_ms, "bound_by": b_by, "library_ms": chol_times["library"],
-    })
-    return records
+        "max_abs_err": chol_err, "ms": t["kernel"], "plain_ms": t["plain"],
+        "bound_ms": b_ms, "bound_by": b_by, "library_ms": t["library"],
+    }
 
 
 def main():
@@ -1011,14 +1203,19 @@ def main():
     check_posterior(idata, launches, max_rhat)
     gp_launches = run_gp(card)
     stress_launches = run_stress(card)
-    total = {k: launches[k] + gp_launches[k] + stress_launches[k] for k in launches}
+    smc_launches = run_smc(card)
+    total = {k: launches[k] + gp_launches[k] + stress_launches[k] + smc_launches[k]
+             for k in launches}
     kernels = kernel_records(total, errs, times, leaf, chol_err, chol_times)
-    print(f"launches: radon {launches}; GP {gp_launches}; stress {stress_launches}")
+    print(f"launches: radon {launches}; GP {gp_launches}; stress {stress_launches}; "
+          f"SMC {smc_launches}")
     print(f"total wall {time.perf_counter() - T_START:.1f} s")
     # the pair at the NUTS shape, where the kernels line held it until it
-    # moved to the stress GLM's (1024, 10004)
+    # moved to the stress GLM's (1024, 10004); the Cholesky at SMC's stack
     print(f"pair at the radon GLM's {TIMED_SHAPES[0]}: "
           f"{json.dumps(pair_records(total, errs, times, TIMED_SHAPES[0]))}")
+    print(f"cholesky at SMC's {CHOL_TIMED[-1]}: "
+          f"{json.dumps(chol_record(total, chol_err, chol_times, CHOL_TIMED[-1]))}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({
         "ok": True,

@@ -23,14 +23,18 @@ import. Entry points run on the card unless `device="cpu"` is asked for.
     idata = pm.sample(draws=300, tune=300, chains=64, mass_adapt="pooled")
 """
 
-from . import gp
-from .distributions import Bernoulli, Gamma, HalfCauchy, HalfNormal, MvNormal, Normal
+from . import distributions, gp
+from .distributions import (
+    Bernoulli, Dirichlet, Gamma, HalfCauchy, HalfNormal, Mixture, MvNormal, Normal,
+    NormalMixture,
+)
 from .model import Deterministic, Model
 from .sampling.mcmc import sample
+from .smc.sampling import sample_smc
 from .stats.convergence import ess, rhat
 
 __all__ = [
     "Model", "Normal", "HalfNormal", "HalfCauchy", "Gamma", "MvNormal", "Bernoulli",
-    "Deterministic",
-    "gp", "sample", "rhat", "ess",
+    "Dirichlet", "Mixture", "NormalMixture", "Deterministic", "distributions",
+    "gp", "sample", "sample_smc", "rhat", "ess",
 ]

@@ -5,7 +5,10 @@ Counterpart of `pymc_tpu/distributions/continuous.py` (Normal :149,
 HalfNormal :250, HalfCauchy :799, Gamma :830; reference
 pymc/distributions/continuous.py:445, :822, :2330, :2415).
 Densities are elementwise tensor expressions; an invalid parameter gives
--inf and never raises, and a value outside the support gives -inf.
+-inf and never raises, and a value outside the support gives -inf. Draws
+(`_sample`) follow the JAX package's: Normal and HalfNormal from standard
+normals, HalfCauchy as |beta tan(pi (u - 1/2))|, Gamma from
+`torch._standard_gamma`, which takes the generator.
 """
 
 from __future__ import annotations
@@ -16,12 +19,18 @@ import torch
 
 from ..graph import apply
 from .dist_math import check_parameters, log_normal, logpow
-from .distribution import Continuous, as_param
+from .distribution import Continuous, as_param, standard_normal, standard_uniform
 
 __all__ = ["Normal", "HalfNormal", "HalfCauchy", "Gamma"]
 
 _LOG_2_OVER_PI = math.log(2.0 / math.pi)
 _SQRT_2_OVER_PI = math.sqrt(2.0 / math.pi)
+
+
+def standard_gamma(generator, alpha):
+    """Gamma(alpha, 1) draws of alpha's shape; `torch.distributions.Gamma`
+    would not take the generator."""
+    return torch._standard_gamma(alpha.contiguous(), generator=generator)
 
 
 def _sigma_tau(sigma, tau):
@@ -42,12 +51,15 @@ class Normal(Continuous):
     param_names = ("mu", "sigma")
     support = "real"
 
-    def __dist_init__(self, mu=0.0, sigma=1.0):
+    def __dist_init__(self, mu=0.0, sigma=None, tau=None):
         self.mu = as_param(mu)
-        self.sigma = as_param(sigma)
+        self.sigma = _sigma_tau(sigma, tau)
 
     def _logp(self, value, mu, sigma):
         return check_parameters(log_normal(value, mu, sigma), sigma > 0)
+
+    def _sample(self, generator, shape, mu, sigma):
+        return mu + sigma * standard_normal(generator, shape, mu)
 
     def _support_point(self, mu, sigma):
         return torch.broadcast_to(mu, torch.broadcast_shapes(mu.shape, sigma.shape))
@@ -67,6 +79,9 @@ class HalfNormal(Continuous):
         res = torch.where(value >= 0, res, -torch.inf)
         return check_parameters(res, sigma > 0)
 
+    def _sample(self, generator, shape, sigma):
+        return sigma * torch.abs(standard_normal(generator, shape, sigma))
+
     def _support_point(self, sigma):
         return sigma * _SQRT_2_OVER_PI
 
@@ -85,6 +100,10 @@ class HalfCauchy(Continuous):
         res = _LOG_2_OVER_PI - torch.log(beta) - torch.log1p(z**2)
         res = torch.where(value >= 0, res, -torch.inf)
         return check_parameters(res, beta > 0)
+
+    def _sample(self, generator, shape, beta):
+        cauchy = torch.tan(math.pi * (standard_uniform(generator, shape, beta) - 0.5))
+        return torch.abs(beta * cauchy)
 
     def _support_point(self, beta):
         return beta
@@ -123,6 +142,9 @@ class Gamma(Continuous):
         )
         res = torch.where(value >= 0, res, -torch.inf)
         return check_parameters(res, alpha > 0, beta > 0)
+
+    def _sample(self, generator, shape, alpha, beta):
+        return standard_gamma(generator, alpha.expand(shape)) / beta
 
     def _support_point(self, alpha, beta):
         return alpha / beta

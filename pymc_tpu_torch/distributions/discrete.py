@@ -14,7 +14,7 @@ import torch
 from ..config import intX
 from ..graph import apply, evaluate
 from .dist_math import check_parameters, safe_log, softplus
-from .distribution import Discrete, as_param
+from .distribution import Discrete, as_param, standard_uniform
 
 __all__ = ["Bernoulli"]
 
@@ -56,6 +56,9 @@ class Bernoulli(Discrete):
         res = torch.where(value == 1, safe_log(p), safe_log(1.0 - p))
         res = torch.where((value == 0) | (value == 1), res, -torch.inf)
         return check_parameters(res, p >= 0, p <= 1)
+
+    def _sample(self, generator, shape, p):
+        return (standard_uniform(generator, shape, p) < p).to(intX())
 
     def _support_point(self, p):
         return (p > 0.5).to(intX())

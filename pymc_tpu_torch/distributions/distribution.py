@@ -7,9 +7,11 @@ whose parameters are graph Nodes (constants or outputs of other RVs); they
 are resolved through the evaluation env, so a model's joint logp stays one
 function of tensors.
 
-Subclasses define `param_names`, `support`, `__dist_init__`, `_logp` and
-`_support_point`; a multivariate one also sets `param_event_ndims` and
-`event_ndim` and defines `_event_shape` (reference distribution.py:87-111).
+Subclasses define `param_names`, `support`, `__dist_init__`, `_logp`,
+`_sample` and `_support_point`; a multivariate one also sets
+`param_event_ndims` and `event_ndim` and defines `_event_shape` (reference
+distribution.py:87-111). Draws take an explicit `torch.Generator` on the
+device of the parameters, and come in their float type.
 """
 
 from __future__ import annotations
@@ -21,7 +23,28 @@ from ..config import intX
 from ..graph import Node, as_node, evaluate
 from . import transforms as tr
 
-__all__ = ["Distribution", "Continuous", "Discrete"]
+__all__ = ["Distribution", "Continuous", "Discrete", "UNSET"]
+
+
+class _Unset:
+    """Marks a keyword argument that was not given (`transform=None` means
+    something else)."""
+
+    def __repr__(self):
+        return "UNSET"
+
+
+UNSET = _Unset()
+
+
+def standard_normal(generator, shape, like):
+    """N(0, 1) draws of `shape` in `like`'s float type, on its device."""
+    return torch.randn(shape, generator=generator, dtype=like.dtype, device=like.device)
+
+
+def standard_uniform(generator, shape, like):
+    """U(0, 1) draws of `shape` in `like`'s float type, on its device."""
+    return torch.rand(shape, generator=generator, dtype=like.dtype, device=like.device)
 
 
 def as_param(x):
@@ -55,13 +78,20 @@ class Distribution:
             )
         observed = kwargs.pop("observed", None)
         dims = kwargs.pop("dims", None)
+        # only meaningful on the named path: they go to register_rv
+        transform = kwargs.pop("transform", UNSET)
+        default_transform = kwargs.pop("default_transform", UNSET)
+        initval = kwargs.pop("initval", None)
         model = Model.get_context()
         if observed is not None and kwargs.get("shape") is None:
             kwargs["shape"] = np.shape(observed)
         elif dims is not None and kwargs.get("shape") is None:
             kwargs["shape"] = model.shape_from_dims(dims)
         dist = cls.dist(*args, **kwargs)
-        return model.register_rv(dist, name, observed=observed, dims=dims)
+        return model.register_rv(
+            dist, name, observed=observed, dims=dims, transform=transform,
+            default_transform=default_transform, initval=initval,
+        )
 
     @classmethod
     def dist(cls, *args, shape=None, **kwargs):
@@ -70,26 +100,31 @@ class Distribution:
         if isinstance(shape, (int, np.integer)):
             shape = (int(shape),)
         obj.__dist_init__(*args, **kwargs)
-        pshapes = [tuple(p.shape) for p in obj.param_values()]
-        event_ndims = obj.param_event_ndims or (0,) * len(pshapes)
+        obj._resolve_shapes(None if shape is None else tuple(shape))
+        return obj
+
+    def _resolve_shapes(self, shape):
+        """Set batch_shape, event_shape and shape from the parameters'
+        shapes, or from a requested `shape` they broadcast to."""
+        pshapes = [tuple(p.shape) for p in self.param_values()]
+        event_ndims = self.param_event_ndims or (0,) * len(pshapes)
         batch = tuple(np.broadcast_shapes(
             *[s[: len(s) - e] for s, e in zip(pshapes, event_ndims)]
         ))
-        event = tuple(obj._event_shape(*pshapes))
+        event = tuple(self._event_shape(*pshapes))
         if shape is not None:
-            shape = tuple(shape)
             if event and shape[len(shape) - len(event):] != event:
                 raise ValueError(
-                    f"shape {shape} incompatible with event shape {event} of {cls.__name__}"
+                    f"shape {shape} incompatible with event shape {event} of "
+                    f"{type(self).__name__}"
                 )
             requested = shape[: len(shape) - len(event)]
             # the requested batch shape must be reachable by broadcasting the params
             np.broadcast_shapes(requested, batch)
             batch = requested
-        obj.batch_shape = batch
-        obj.event_shape = event
-        obj.shape = batch + event
-        return obj
+        self.batch_shape = batch
+        self.event_shape = event
+        self.shape = batch + event
 
     def __dist_init__(self, *args, **kwargs):  # pragma: no cover - abstract
         raise NotImplementedError
@@ -99,6 +134,12 @@ class Distribution:
 
     def param_values(self):
         return [getattr(self, n) for n in self.param_names]
+
+    def inputs(self):
+        """Every value the distribution reads: the graph walks these to find
+        a random variable's parents and the constants to place on the
+        device (a mixture adds its components')."""
+        return self.param_values()
 
     def resolve_params(self, env=None, memo=None):
         return tuple(evaluate(p, env, memo) for p in self.param_values())
@@ -110,6 +151,20 @@ class Distribution:
     def logp(self, value, env=None, memo=None):
         """Elementwise log-density of `value` over the batch shape."""
         return self._logp(value, *self.resolve_params(env, memo))
+
+    def sample(self, generator, sample_shape=(), env=None, memo=None):
+        """Draws of shape sample_shape + self.shape from `generator` (a
+        torch.Generator on the parameters' device); int64 for a discrete
+        distribution, else the parameters' float type."""
+        if isinstance(sample_shape, int):
+            sample_shape = (sample_shape,)
+        draw = self._sample(
+            generator, tuple(sample_shape) + self.shape, *self.resolve_params(env, memo)
+        )
+        return draw.to(intX()) if self.is_discrete else draw
+
+    def _sample(self, generator, shape, *params):  # pragma: no cover - abstract
+        raise NotImplementedError(f"random sampling not implemented for {type(self).__name__}")
 
     def support_point(self, env=None, memo=None):
         """Finite, in-support initial value (reference support_point:679)."""
@@ -123,6 +178,8 @@ class Distribution:
             return tr.log
         if self.support == "real":
             return None
+        if self.support == "simplex":
+            return tr.simplex
         raise NotImplementedError(
             f"no default transform for support {self.support!r} in this port"
         )

@@ -1,9 +1,10 @@
-"""Multivariate distributions: MvNormal.
+"""Multivariate distributions: MvNormal and Dirichlet.
 
-Counterpart of `pymc_tpu/distributions/multivariate.py` (:41-110; reference
-pymc/distributions/multivariate.py MvNormal:188, PrecisionMvNormal:310 via
-`tau`). A covariance or precision parameter is factored by
-`ops.linalg.cholesky_batched`, the hand-written kernel on the card.
+Counterpart of `pymc_tpu/distributions/multivariate.py` (MvNormal :41-110,
+Dirichlet :158-193; reference pymc/distributions/multivariate.py
+MvNormal:188, PrecisionMvNormal:310 via `tau`, Dirichlet:515). A covariance
+or precision parameter is factored by `ops.linalg.cholesky_batched`, the
+hand-written kernel on the card.
 """
 
 from __future__ import annotations
@@ -14,9 +15,11 @@ import torch
 
 from ..graph import apply
 from ..ops.linalg import cholesky_batched
-from .distribution import Continuous, as_param
+from .continuous import standard_gamma
+from .dist_math import check_parameters, logpow
+from .distribution import Continuous, as_param, standard_normal
 
-__all__ = ["MvNormal"]
+__all__ = ["MvNormal", "Dirichlet"]
 
 _LOG_2PI = math.log(2.0 * math.pi)
 
@@ -80,5 +83,45 @@ class MvNormal(Continuous):
     def _logp(self, value, mu, chol):
         return _mvn_logp(value, mu, chol)
 
+    def _sample(self, generator, shape, mu, chol):
+        z = standard_normal(generator, shape, chol)
+        return mu + torch.einsum("...ij,...j->...i", chol, z)
+
     def _support_point(self, mu, chol):
         return torch.broadcast_to(mu, torch.broadcast_shapes(mu.shape, chol.shape[:-1]))
+
+
+class Dirichlet(Continuous):
+    """Reference multivariate.py:515; its values live on the simplex, and a
+    value off it (a negative entry, or a sum more than 1e-6 from 1) has
+    logp -inf."""
+
+    param_names = ("a",)
+    param_event_ndims = (1,)
+    event_ndim = 1
+    support = "simplex"
+
+    def __dist_init__(self, a):
+        self.a = as_param(a)
+
+    def _event_shape(self, a_shape):
+        return (a_shape[-1],)
+
+    def _logp(self, value, a):
+        res = (
+            torch.sum(logpow(value, a - 1.0), dim=-1)
+            + torch.lgamma(torch.sum(a, dim=-1))
+            - torch.sum(torch.lgamma(a), dim=-1)
+        )
+        in_simplex = torch.all(value >= 0, dim=-1) & (
+            torch.abs(torch.sum(value, dim=-1) - 1.0) < 1e-6
+        )
+        res = torch.where(in_simplex, res, -torch.inf)
+        return check_parameters(res, torch.all(a > 0, dim=-1))
+
+    def _sample(self, generator, shape, a):
+        g = standard_gamma(generator, a.expand(shape))
+        return g / torch.sum(g, dim=-1, keepdim=True)
+
+    def _support_point(self, a):
+        return a / torch.sum(a, dim=-1, keepdim=True)

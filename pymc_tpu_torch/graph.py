@@ -217,7 +217,9 @@ class FreeRV(Node):
 
     @property
     def value_shape(self):
-        return self.shape
+        if self.transform is None:
+            return self.shape
+        return tuple(self.transform.value_shape(self.shape))
 
     def _compute(self, env, memo):
         try:
@@ -277,11 +279,9 @@ def _parents(node):
     if isinstance(node, DeterministicNode):
         return [a for a in node.args if isinstance(a, Node)]
     if isinstance(node, FreeRV):
-        return [p for p in node.dist.param_values() if isinstance(p, Node)]
+        return [p for p in node.dist.inputs() if isinstance(p, Node)]
     if isinstance(node, ObservedRV):
-        return [node.observed] + [
-            p for p in node.dist.param_values() if isinstance(p, Node)
-        ]
+        return [node.observed] + [p for p in node.dist.inputs() if isinstance(p, Node)]
     return []
 
 

@@ -1,8 +1,9 @@
 """Initial points for samplers.
 
 Counterpart of `pymc_tpu/initial_point.py` (reference pymc/initial_point.py):
-each free RV starts at its distribution's support point, mapped to the
-unconstrained space, and every chain adds U(-1, 1) noise there.
+each free RV starts at its initval where the model has one, else at its
+distribution's support point, mapped to the unconstrained space, and every
+chain adds U(-1, 1) noise there.
 The retry of the reference's _init_jitter (sampling/mcmc.py:1695) is
 vectorised: every chain draws 10 candidates at once and keeps the first
 with a finite logp.
@@ -10,6 +11,7 @@ with a finite logp.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from .blocking import ravel_point
@@ -19,15 +21,22 @@ __all__ = ["support_point_values", "make_initial_points_per_chain"]
 
 
 def support_point_values(model):
-    """{value_name: unconstrained support point} in registration order, on
-    the CPU in float64."""
+    """{value_name: unconstrained initial value} in registration order, on
+    the CPU in float64: each free RV's initval (given in the constrained
+    space, pymc_tpu initial_point.py:26-28) or else its support point."""
     env = {}
     values = {}
     memo = {}
     for rv in model.free_RVs:
-        x = rv.dist.support_point(env, memo).to(torch.float64)
+        if rv.name in model.rvs_to_initial_values:
+            x = torch.broadcast_to(
+                torch.as_tensor(np.asarray(model.rvs_to_initial_values[rv.name])), rv.shape
+            )
+        else:
+            x = rv.dist.support_point(env, memo)
+        x = x.to(torch.float64)
         env[rv.name] = x
-        values[rv.value_name] = rv.transform.forward(x) if rv.transform else x
+        values[rv.value_name] = rv.transform.forward(x, env) if rv.transform else x
     return values
 
 

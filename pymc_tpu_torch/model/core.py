@@ -12,12 +12,15 @@ of the per-point logp, so the graph keeps its per-point semantics.
 from __future__ import annotations
 
 import threading
+import warnings
 
 import numpy as np
 import torch
 
 from ..blocking import RaveledInfo, unravel_vector
 from ..config import floatX, resolve_device
+from ..distributions.distribution import UNSET
+from ..distributions.transforms import ChainedTransform
 from ..graph import (
     ConstantNode,
     DeterministicNode,
@@ -68,6 +71,9 @@ class Model:
         self.free_RVs = []
         self.observed_RVs = []
         self.deterministics = []
+        # {rv name: initval}, in the constrained space (reference
+        # Model.rvs_to_initial_values)
+        self.rvs_to_initial_values = {}
         self._coords = {}
         self._dim_lengths = {}
         for name, values in (coords or {}).items():
@@ -131,10 +137,20 @@ class Model:
         self.named_vars[var.name] = var
         return var
 
-    def register_rv(self, dist, name, *, observed=None, dims=None):
+    def register_rv(self, dist, name, *, observed=None, dims=None, transform=UNSET,
+                    default_transform=UNSET, initval=None):
         """Create a FreeRV or ObservedRV node for `dist` named `name`
-        (reference model/core.py:1907). A free RV gets its distribution's
-        default transform."""
+        (reference model/core.py:1907, pymc_tpu/model/core.py:383-482).
+
+        A free RV's transform is its distribution's default one
+        (`default_transform=` replaces it, None disables it), with a user
+        `transform=` chained once on top: ChainedTransform([base, user]).
+        `transform=None` is the deprecated way to disable the default and
+        warns. A discrete RV takes no transform, and a transform must treat
+        at least the distribution's event dims as one block. `initval` (in
+        the constrained space) replaces the support point as the initial
+        value.
+        """
         if observed is not None:
             # a discrete distribution keeps integer data (float data without
             # NaN is cast to int64); continuous data is float64 at build time
@@ -153,9 +169,12 @@ class Model:
         else:
             rv = FreeRV(
                 name, dist, shape=dist.shape, dtype=dist.dtype,
-                transform=dist.default_transform(), model=self,
+                transform=_resolve_transform(dist, name, transform, default_transform),
+                model=self,
             )
             self.free_RVs.append(rv)
+            if initval is not None:
+                self.rvs_to_initial_values[name] = initval
         return self.add_named_variable(rv, dims)
 
     # ------------------------------------------------------------- density
@@ -192,12 +211,12 @@ class Model:
             env = {}
             for rv in free_RVs:
                 v = value_dict[rv.value_name]
-                env[rv.name] = rv.transform.backward(v) if rv.transform else v
+                env[rv.name] = rv.transform.backward(v, env) if rv.transform else v
             terms = {}
             for rv in free_RVs:
                 lp = rv.dist.logp(env[rv.name], env, memo).sum()
                 if rv.transform is not None:
-                    lp = lp + rv.transform.log_jac_det(value_dict[rv.value_name]).sum()
+                    lp = lp + rv.transform.log_jac_det(value_dict[rv.value_name], env).sum()
                 terms[rv.name] = lp
             for orv in observed_RVs:
                 lp = orv.dist.logp(orv._eval(env, memo), env, memo)
@@ -206,21 +225,47 @@ class Model:
 
         return fn
 
-    def logp_fn(self, device=None, dtype=None):
-        """fn(value_dict) -> scalar joint logp, jacobians included."""
+    def logp_fn(self, device=None, dtype=None, split=False):
+        """fn(value_dict) -> scalar joint logp, jacobians included; with
+        split=True fn returns (varlogp, datalogp): the free RVs' terms with
+        their jacobians, and the rest, for tempering (pymc_tpu
+        model/core.py:803-826)."""
         terms_fn = self.logp_terms_fn(device, dtype)
+        free_names = {rv.name for rv in self.free_RVs}
+
+        def total(terms):
+            out = terms[0]
+            for t in terms[1:]:
+                out = out + t
+            return out
+
+        if split:
+            def split_fn(value_dict):
+                terms = terms_fn(value_dict)
+                zero = next(iter(terms.values())).new_zeros(())
+                var = [v for k, v in terms.items() if k in free_names]
+                data = [v for k, v in terms.items() if k not in free_names]
+                return total([zero] + var), total([zero] + data)
+
+            return split_fn
 
         def fn(value_dict):
-            terms = list(terms_fn(value_dict).values())
-            total = terms[0]
-            for t in terms[1:]:
-                total = total + t
-            return total
+            return total(list(terms_fn(value_dict).values()))
 
         return fn
 
-    def raveled_info(self) -> RaveledInfo:
-        return RaveledInfo.from_rvs(self.free_RVs)
+    def raveled_info(self, vars=None) -> RaveledInfo:
+        """The flat layout of `vars` (default: every free RV)."""
+        return RaveledInfo.from_rvs(self.free_RVs if vars is None else vars)
+
+    def unconstrain(self, point):
+        """{rv name: constrained value} -> {value name: unconstrained value}."""
+        env = dict(point)
+        return {
+            rv.value_name: rv.transform.forward(point[rv.name], env) if rv.transform
+            else point[rv.name]
+            for rv in self.free_RVs
+        }
 
     def logp_dlogp_fn(self, device=None, dtype=None):
         """fn(q (C, D)) -> (logp (C,), grad (C, D)) over flat unconstrained
@@ -261,7 +306,7 @@ class Model:
             env = {}
             for rv in free_RVs:
                 v = vals[rv.value_name]
-                env[rv.name] = rv.transform.backward(v) if rv.transform else v
+                env[rv.name] = rv.transform.backward(v, env) if rv.transform else v
             out = dict(env)
             for det in deterministics:
                 out[det.name] = det._eval(env, memo)
@@ -271,6 +316,46 @@ class Model:
 
     def __repr__(self):
         return f"<Model: {len(self.free_RVs)} free RVs, {len(self.observed_RVs)} observed>"
+
+
+def _resolve_transform(dist, name, transform, default_transform):
+    """The transform of a free RV (pymc_tpu model/core.py:424-472): the
+    default (or `default_transform`), with a user `transform` chained on top
+    of it once."""
+    if transform is None:
+        warnings.warn(
+            "To disable default transform, please use "
+            "default_transform=None instead of transform=None. Setting "
+            "transform to None will not have any effect in future.",
+            UserWarning,
+            stacklevel=4,
+        )
+        if default_transform is UNSET:
+            default_transform = None
+        transform = UNSET
+    base = dist.default_transform() if default_transform is UNSET else default_transform
+    user = None if transform is UNSET else transform
+    base, user = (None if t is False else t for t in (base, user))
+    if base is None or user is None:
+        tr = user if base is None else base
+    else:
+        tr = ChainedTransform([base, user])
+    if tr is not None:
+        if dist.is_discrete:
+            raise ValueError(
+                "Transformations for discrete distributions are not "
+                f"allowed (got {tr!r} for {name!r}); discrete values "
+                "have no continuous unconstrained space."
+            )
+        if tr.event_ndim < dist.event_ndim:
+            raise NotImplementedError(
+                f"Univariate transform {type(tr).__name__} cannot be "
+                f"applied to multivariate {name!r} (event_ndim="
+                f"{dist.event_ndim}); the Jacobian correction would "
+                "broadcast against the collapsed event density. Use a "
+                "vector transform (reference raises the same)."
+            )
+    return tr
 
 
 def Deterministic(name, var, model=None, dims=None):

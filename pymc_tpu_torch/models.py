@@ -5,7 +5,10 @@ benchmarks (`benchmarks/suite.py::case_gp_marginal`): a marginal GP with an
 `eta**2 * ExpQuad` kernel and Gaussian noise on n sorted inputs.
 `stress_glm_model` is BASELINE config #3 (`suite.py::_stress_model`): the
 hierarchical logistic GLM with 10,004 free parameters that
-`suite.py::case_stress_chees` samples with ChEES. Each builder takes the
+`suite.py::case_stress_chees` samples with ChEES. `smc_mixture_model` is
+BASELINE config #5 (`suite.py::case_smc`), the bimodal mixture that
+`sample_smc` samples, and `mixture_model` the three-component mixture of
+`suite.py::case_mixture`, which it samples with NUTS. Each builder takes the
 package to build with (`pymc_tpu_torch` by default), so the reference
 package builds the same model from the same data. The radon GLM's builder
 is `bench.build_model`; its sampling arguments are here.
@@ -19,6 +22,8 @@ __all__ = [
     "gp_data", "gp_marginal_model", "GP_SAMPLE_KWARGS", "GP_SMOKE_KWARGS", "GP_SCALARS",
     "RADON_SAMPLE_KWARGS",
     "stress_glm_model", "STRESS_HYPERS", "STRESS_SAMPLE_KWARGS",
+    "smc_mixture_model", "SMC_SAMPLE_KWARGS", "SMC_SEEDS", "smc_chain_estimates",
+    "mixture_model",
 ]
 
 # bench.py's many-chain configuration (pooled mass and step, target_accept
@@ -105,4 +110,66 @@ def stress_glm_model(n_groups=5000, n_obs=20000, seed=0, pm=None):
         a = mu_a + sd_a * a_t
         b = mu_b + sd_b * b_t
         pm.Bernoulli("y", logit_p=a[g] + b[g] * x, observed=y)
+    return m
+
+
+# case_smc's keyword arguments to `sample_smc` (IMH, threshold 0.5,
+# correlation_threshold 0.01 by default); the fixture and chip_smoke.py run
+# it at each of SMC_SEEDS, for a spread over runs
+SMC_SAMPLE_KWARGS = dict(draws=2000, chains=4, random_seed=0)
+SMC_SEEDS = (0, 1, 2, 3, 4)
+
+
+def smc_chain_estimates(idata):
+    """{name: (chains,) float64}: each chain's posterior mean of mu[0],
+    mu[1], w[0] and w[1], and its log marginal likelihood."""
+    post = idata.posterior
+    out = {}
+    for name in ("mu", "w"):
+        x = np.asarray(post[name].values, dtype=np.float64)
+        for k in range(x.shape[-1]):
+            out[f"{name}[{k}]"] = x[..., k].mean(axis=1)
+    out["log_marginal_likelihood"] = np.asarray(
+        idata.sample_stats["log_marginal_likelihood"].values[:, 0], dtype=np.float64
+    )
+    return out
+
+
+def smc_mixture_model(pm=None):
+    """w ~ Dirichlet(1, 1), mu ~ Normal(0, 3) ordered (initval (-1, 1));
+    y ~ w_0 N(mu_0, 0.5) + w_1 N(mu_1, 0.5) on 120 observations, 60 around
+    -2 and 60 around 2, from numpy's generator at seed 7
+    (`benchmarks/suite.py::case_smc`)."""
+    if pm is None:
+        import pymc_tpu_torch as pm
+    rng = np.random.default_rng(7)
+    y = np.concatenate([rng.normal(-2, 0.5, 60), rng.normal(2, 0.5, 60)])
+    with pm.Model() as m:
+        w = pm.Dirichlet("w", np.ones(2))
+        mu = pm.Normal("mu", 0, 3, shape=2,
+                       transform=pm.distributions.transforms.ordered,
+                       initval=np.array([-1.0, 1.0]))
+        pm.Mixture("y", w, pm.Normal.dist(mu, 0.5), observed=y)
+    return m
+
+
+def mixture_model(pm=None):
+    """w ~ Dirichlet(1, 1, 1), mu ~ Normal(0, 5) ordered (initval (-1, 0,
+    1)), both on the dim "comp"; y ~ sum_k w_k N(mu_k, 1) on 1,500
+    observations drawn with weights (0.35, 0.4, 0.25) around (0, 2, -1)
+    from numpy's generator at seed 12345 (`benchmarks/suite.py::
+    case_mixture`)."""
+    if pm is None:
+        import pymc_tpu_torch as pm
+    rng = np.random.default_rng(12345)
+    w_true = np.array([0.35, 0.4, 0.25])
+    mu_true = np.array([0.0, 2.0, -1.0])
+    comp = rng.choice(3, p=w_true, size=1500)
+    y = rng.normal(mu_true[comp], 1.0)
+    with pm.Model(coords={"comp": range(3)}) as m:
+        w = pm.Dirichlet("w", np.ones(3), dims="comp")
+        mu = pm.Normal("mu", 0.0, 5.0,
+                       transform=pm.distributions.transforms.ordered,
+                       initval=np.array([-1.0, 0.0, 1.0]), dims="comp")
+        pm.Mixture("y", w, pm.Normal.dist(mu, 1.0), observed=y)
     return m

@@ -55,15 +55,21 @@ class CheesState(NamedTuple):
 
 
 class HostReads:
-    """Reads device values to the host as Python ints and counts them: each
-    read is a host sync."""
+    """Reads device values to the host and counts the reads: each read is a
+    host sync."""
 
     def __init__(self):
         self.count = 0
 
     def __call__(self, x):
+        """x (a one-element tensor) as a Python int."""
         self.count += 1
         return int(x)
+
+    def numpy(self, x):
+        """x as a numpy array, in one read."""
+        self.count += 1
+        return x.cpu().numpy()
 
 
 def chees_init(q, logp, grad, initial_T=1.0):

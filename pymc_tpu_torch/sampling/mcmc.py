@@ -130,7 +130,12 @@ def sample(
     sampler="nuts",
     var_names=None,
     compute_convergence_checks=True,
+    progressbar=True,
+    return_inferencedata=True,
+    idata_kwargs=None,
+    cores=None,
     device=None,
+    **kwargs,
 ):
     """Draw posterior samples with batched NUTS or ChEES on one device,
     starting every chain at the jittered support point (the reference's
@@ -148,6 +153,12 @@ def sample(
     device : "cuda" (default) or "cpu"; the card is used unless "cpu" is
         asked for, and without a card the default raises. The sampler runs
         in float32 on CUDA, float64 on the CPU.
+    progressbar, idata_kwargs, cores, **kwargs : accepted, as
+        `pymc_tpu.sample` accepts them (bench.py and the suite pass
+        `progressbar=False`); they do nothing on one device.
+    return_inferencedata : with False, the posterior dict {name: (chain,
+        draw, *shape)} is returned (the JAX package's MultiTrace needs
+        `backends/base.py`, which is not ported).
 
     Returns an InferenceData whose posterior attrs hold sampling_time,
     tuning_time, compile_time (seconds spent building kernels in this call),
@@ -311,4 +322,6 @@ def sample(
     _log.info(f"Sampling {draws} draws x {chains} chains took {t2 - t1:.2f}s")
     if compute_convergence_checks:
         log_warnings(run_convergence_checks(idata, model))
+    if not return_inferencedata:
+        return posterior
     return idata

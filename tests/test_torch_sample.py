@@ -207,8 +207,32 @@ def _run(code):
 
 
 def test_import_leaves_jax_out():
-    proc = _run("import sys, pymc_tpu_torch; sys.exit(int('jax' in sys.modules))")
+    proc = _run(
+        "import sys, pymc_tpu_torch, pymc_tpu_torch.smc.sampling, "
+        "pymc_tpu_torch.sampling.forward, pymc_tpu_torch.distributions.mixture; "
+        "sys.exit(int(any(m.split('.')[0] in ('jax', 'pymc_tpu') for m in sys.modules)))"
+    )
     assert proc.returncode == 0, proc.stderr
+
+
+def test_bench_arguments_are_accepted():
+    # bench.py:71-82's keyword arguments, at its many-chain settings
+    idata = pmt.sample(
+        draws=3, tune=3, chains=2, model=eight_schools(pmt), random_seed=0,
+        progressbar=False, compute_convergence_checks=False, mass_adapt="pooled",
+        step_adapt="pooled", target_accept=0.95, device="cpu",
+    )
+    assert idata.posterior["theta"].shape == (2, 3, 8)
+
+
+def test_arguments_that_do_nothing_on_one_device_are_accepted():
+    post = pmt.sample(
+        draws=3, tune=3, chains=2, model=eight_schools(pmt), random_seed=0, device="cpu",
+        progressbar=True, cores=4, idata_kwargs={"log_likelihood": False},
+        nuts_sampler="pymc", return_inferencedata=False,
+    )
+    assert sorted(post) == ["mu", "tau", "theta", "theta_t"]
+    assert post["theta"].shape == (2, 3, 8)
 
 
 def test_cuda_request_without_card_raises():
