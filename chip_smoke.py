@@ -82,14 +82,38 @@ Phases, in order; any failure ends the script with a non-zero exit:
                 (made by pymc_tpu on the CPU), MH's mean of mu too; prints
                 each run's wall, stages, sweeps a stage, acceptance and
                 host reads a stage, and the kernels of one sweep (profiled)
+  9. GP       — prediction and the rest of BASELINE config #4's forms:
+                9a. logp/grad at 64 points on the card in float32 against
+                the CPU in float64 for the latent GP (n = 150), HSGP (m =
+                32), a Student-t process, MarginalApprox with VFE and with
+                FITC (20 inducing points), LatentKron and MarginalKron on a
+                15 x 10 grid, each with its Cholesky launches a logp+grad
+                (1, 0, 1, 2, 2, 2 and 0); the forms whose prior jitter
+                depends on the float type take GP_FORM_JITTER on both sides;
+                then the latent GP at its float32 default jitter against
+                models.gp_latent_logp_plain in float64 with that jitter,
+                and the card's factors of its prior covariance at 600
+                (ls, eta): none non-finite, backward error < 0.5 jitter;
+                9b. sample_posterior_predictive of f_pred =
+                gp.conditional(..., pred_noise=True) at 100 points on [0,
+                12] over phase 6's 12,800 draws, at seeds 0 and 1: every
+                draw finite, two Cholesky launches a run (Ky and the
+                conditional covariance), the
+                draws' mean and variance at each point within GP_PRED_Z
+                Monte Carlo standard errors of Marginal.predict's on the
+                same draws on the CPU in float64; its wall and peak memory.
+                The latent GP sampled with NUTS (config #4's named form) is
+                scripts/probe_torch_gp_latent.py's: its deep lock-step trees
+                take longer than this script's time limit allows
 
-Phase 3 also checks and times the Cholesky at SMC's (4, 3) stack, and
-phase 4 compares the two mixture models' logp/grad and SMC's tempered
-density on the card with the CPU. Each sampling phase sets every kernel's
-launch count to 0 just before it samples and reads the counts just after.
-The line before the last is one JSON object with each kernel's launches
-(summed over the four sampling phases), error, times and bound; the last
-line is {"ok": true, "device": {...}}.
+Phase 3 also checks and times the Cholesky at SMC's (4, 3) stack and at
+phase 9's shapes, and phase 4 compares the two mixture models' logp/grad
+and SMC's tempered density on the card with the CPU. Each sampling or
+predictive phase sets every kernel's launch count to 0 just before it runs
+and reads the counts just after. The line before the last is one JSON
+object with each kernel's launches (summed over the sampling and
+predictive phases), error, times and bound; the last line is {"ok": true,
+"device": {...}}.
 
 Usage:
     python3 chip_smoke.py
@@ -113,6 +137,27 @@ REFERENCE = os.path.join(ROOT, "tests", "data", "torch_radon_reference.json")
 GP_REFERENCE = os.path.join(ROOT, "tests", "data", "torch_gp_marginal_reference.json")
 STRESS_REFERENCE = os.path.join(ROOT, "tests", "data", "torch_stress_reference.json")
 SMC_REFERENCE = os.path.join(ROOT, "tests", "data", "torch_smc_reference.json")
+# The default prior jitter of the latent, TP, Kron and sparse forms depends
+# on the float type (1e-6 or 1e-4 in float64, at least 1e-4 in float32), so
+# the float32 and float64 models differ by more than float32's rounding:
+# phase 9a builds them with this jitter on both sides
+GP_FORM_JITTER = 1e-2
+# phase 9a also holds the latent GP at its float32 default jitter (3e-5
+# eta^2, at least 1e-4) to the float64 model with that jitter. There K's
+# condition reaches ~5e6, so float32's Cholesky moves f = L v, and with it
+# the logp, far more than at GP_FORM_JITTER: LAPACK's float32 factor gives
+# 1.9e-3 and 4.9e-4 at these points, and a backward error of 0.11 jitters
+# over the lengthscales (tests/test_torch_gp_approx.py)
+LATENT_LOGP_RTOL = 1e-2
+LATENT_GRAD_RTOL = 5e-3
+LATENT_BACKWARD_TOL = 0.5
+# phase 9b: the predictive's mean and variance at each new point are held
+# within this many Monte Carlo standard errors of Marginal.predict's
+GP_PRED_Z = 5.0
+GP_PRED_POINTS = 100
+# two seeds, so that a shift of the draws' mean that one seed shows can be
+# told from chance
+GP_PRED_SEEDS = (0, 1)
 # SMC's estimates differ from run to run: a mean over chains is held within
 # this many combined standard errors, each from its side's between-chain
 # spread (20 chains of pymc_tpu's, 20 of the port's IMH, 4 of its MH run)
@@ -148,11 +193,16 @@ CHOL_SHAPES = [
     (8, 161, torch.float32), (4, 256, torch.float32), (2, 320, torch.float32),
     (2, 321, torch.float32), (8, 500, torch.float32), (2, 1000, torch.float32),
     (4, 161, torch.float64), (3, 224, torch.float64), (2, 225, torch.float64),
-    (2, 300, torch.float64),
+    (2, 300, torch.float64), (12800, 150, torch.float32), (12800, 100, torch.float32),
+    (64, 20, torch.float32), (64, 15, torch.float32), (64, 10, torch.float32),
 ]
 # (C, n) timed in float32, the GP path's first, SMC's particle covariances
 # last; indefinite batches at these n
 CHOL_TIMED = [(64, 150), (1024, 150), (8, 500), (4, 3)]
+# phase 9's shapes: the predictive's Ky and conditional covariance over
+# 12,800 draws, MarginalApprox's Kuu and B at 20 inducing points, the Kron
+# factors of the 15 x 10 grid
+CHOL_TIMED_GP = [(12800, 150), (12800, 100), (64, 20), (64, 15), (64, 10)]
 CHOL_INDEFINITE = [150, 300, 500]
 # |L - L_plain| <= tol * n * max|L_plain|: float32 is tests/ops/test_linalg.py's bound
 CHOL_TOL = {torch.float32: 2e-5, torch.float64: 1e-12}
@@ -724,7 +774,7 @@ def check_cholesky(card):
         if not (bool((nonfinite == bad).all()) and err <= tol):
             raise AssertionError(f"cholesky kernel mishandles indefinite matrices at n = {n}")
     times = {}
-    for C, n in CHOL_TIMED:
+    for C, n in CHOL_TIMED + CHOL_TIMED_GP:
         A = spd_stack(C, n, torch.float32, seed=1)
         calls = {
             "plain": lambda: la.cholesky_plain(A),
@@ -746,7 +796,40 @@ def check_cholesky(card):
         print(f"({C}, {n}) float32 cholesky: kernel {times[(C, n)]['kernel']:.5f} ms, "
               f"cholesky_ex {times[(C, n)]['library']:.5f} ms, bound {b_ms:.7f} ms "
               f"({b_by})  [{card}]")
+    times["backward"] = chol_backward_times(card, *CHOL_TIMED[0])
     return err_main, times
+
+
+def chol_backward_bound(C, n):
+    """Bound of a factorisation and its backward in float32: the forward's
+    bytes and C n^3 / 3 multiply-adds, then L and the cotangent read and
+    the (C, n, n) gradient written, and the backward's C (n^3 + 2 n^3)
+    multiply-adds (L^T Lbar, two triangular solves)."""
+    fwd_bytes = C * (n * (n + 1) // 2 + n * n) * 4
+    return bound_ms(fwd_bytes + 3 * C * n * n * 4, C * (n**3 / 3 + 3 * n**3), torch.float32)
+
+
+def chol_backward_times(card, C, n):
+    """A logp+grad's Cholesky, forward and backward, at (C, n) in float32:
+    the kernel with its backward rule against cholesky_ex with torch's.
+    Returns {name: device ms}."""
+    from pymc_tpu_torch.ops import linalg as la
+
+    A = spd_stack(C, n, torch.float32, seed=1).requires_grad_()
+    G = torch.randn(A.shape, generator=torch.Generator(device="cuda").manual_seed(2),
+                    device="cuda")
+    calls = {
+        "kernel": lambda: torch.autograd.grad(la.cholesky_batched(A), A, G),
+        "library": lambda: torch.autograd.grad(torch.linalg.cholesky_ex(A)[0], A, G),
+    }
+    measured = {k: [] for k in calls}
+    for k in list(calls) + list(calls)[::-1]:
+        measured[k].append(cuda_ms(calls[k]))
+    out = {k: min(m[0] for m in v) for k, v in measured.items()}
+    b_ms, b_by = chol_backward_bound(C, n)
+    print(f"({C}, {n}) float32 cholesky forward and backward: kernel {out['kernel']:.5f} ms, "
+          f"cholesky_ex {out['library']:.5f} ms, bound {b_ms:.7f} ms ({b_by})  [{card}]")
+    return out
 
 
 def check_logp_on_card(label, model, chains=64):
@@ -822,11 +905,9 @@ def check_smc_density():
             raise AssertionError(f"SMC tempered density on the card disagrees ({label})")
 
 
-def sample_counted(model, config, sampler=None):
-    """`sampler` (default pm.sample) on the card with every kernel's launch
-    count set to 0 just before and read just after; returns (idata,
-    {kernel: launches})."""
-    import pymc_tpu_torch as pm
+def counted(call):
+    """call() with every kernel's launch count set to 0 just before and read
+    just after; returns (its result, {kernel: launches})."""
     from pymc_tpu_torch.ops import leapfrog as lf
     from pymc_tpu_torch.ops import linalg as la
 
@@ -838,9 +919,18 @@ def sample_counted(model, config, sampler=None):
     }
     for w in wrappers.values():
         w.launches = 0
-    idata = (sampler or pm.sample)(model=model, device="cuda", compute_convergence_checks=False,
-                                   **config)
-    return idata, {k: w.launches for k, w in wrappers.items()}
+    out = call()
+    return out, {k: w.launches for k, w in wrappers.items()}
+
+
+def sample_counted(model, config, sampler=None):
+    """`sampler` (default pm.sample) on the card, counted; returns (idata,
+    {kernel: launches})."""
+    import pymc_tpu_torch as pm
+
+    return counted(lambda: (sampler or pm.sample)(
+        model=model, device="cuda", compute_convergence_checks=False, **config
+    ))
 
 
 def run_sampler(card):
@@ -916,7 +1006,7 @@ def check_posterior(idata, launches, max_rhat):
 
 def run_gp(card):
     """Phase 6: sample the marginal GP on the card and check it; returns
-    {kernel: launches}."""
+    ({kernel: launches}, idata)."""
     from pymc_tpu_torch.models import GP_SCALARS, GP_SMOKE_KWARGS, gp_marginal_model
     from pymc_tpu_torch.stats.convergence import ess, grad_evals_per_sec, mcse_mean, rhat
 
@@ -953,7 +1043,7 @@ def run_gp(card):
               f"{z:+.2f} combined MCSE")
         if not abs(z) <= 5.0:
             raise AssertionError(f"GP {name} posterior mean is {z:+.2f} MCSE off the reference")
-    return launches
+    return launches, idata
 
 
 def run_stress(card):
@@ -1146,6 +1236,173 @@ def run_smc(card):
     return total
 
 
+def gp_forms():
+    """Phase 9a's model forms: [(label, model, Cholesky launches a
+    logp+grad)]."""
+    from pymc_tpu_torch import models
+
+    J = GP_FORM_JITTER
+    return [
+        ("latent GP (n = 150)", models.gp_latent_model(150, jitter=J), 1),
+        ("HSGP (n = 150, m = 32)", models.gp_hsgp_model(150, 32), 0),
+        ("TP (n = 150, nu = 5)", models.gp_tp_model(150, jitter=J), 1),
+        ("MarginalApprox VFE (20 inducing)", models.gp_approx_model("VFE", jitter=J), 2),
+        ("MarginalApprox FITC (20 inducing)", models.gp_approx_model("FITC", jitter=J), 2),
+        ("LatentKron (15 x 10 grid)", models.gp_kron_model("latent", jitter=J), 2),
+        ("MarginalKron (15 x 10 grid)", models.gp_kron_model("marginal"), 0),
+    ]
+
+
+def check_gp_forms():
+    """Phase 9a: each GP form's logp/grad on the card in float32 against the
+    CPU in float64 at 64 points, and its Cholesky launches a logp+grad; then
+    the latent GP at its float32 default jitter."""
+    from pymc_tpu_torch.ops import linalg as la
+
+    phase("9a GP forms: logp/grad on the card, Cholesky launches")
+    for label, model, expect in gp_forms():
+        la.cholesky_batched.launches = 0
+        check_logp_on_card(label, model)  # one logp+grad on the card
+        got = la.cholesky_batched.launches
+        print(f"{label}: {got} Cholesky launches a logp+grad (expected {expect})")
+        if got != expect:
+            raise AssertionError(f"{label}: {got} Cholesky launches a logp+grad, not {expect}")
+    check_latent_default_jitter()
+
+
+def check_latent_default_jitter(chains=64):
+    """The latent GP as it is sampled, float32 with its default prior jitter
+    max(1e-4, F32_PRIOR_JITTER eta^2), against models.gp_latent_logp_plain
+    in float64 with the same jitter: logp and grad at `chains` points
+    (LATENT_LOGP_RTOL, LATENT_GRAD_RTOL of the largest entry), one Cholesky
+    launch; and the card's factors of its prior covariance over lengthscales
+    on [0.05, 50] and three amplitudes: none non-finite, and L L^T within
+    LATENT_BACKWARD_TOL jitters of the float64 matrix in the 2-norm, so the
+    float32 model's prior is the float64 one with the same jitter."""
+    from pymc_tpu_torch import models
+    from pymc_tpu_torch.gp.gp import F32_PRIOR_JITTER
+    from pymc_tpu_torch.ops import linalg as la
+
+    label = "latent GP (n = 150), default float32 jitter"
+    model = models.gp_latent_model(150)
+    D = model.raveled_info().total_size
+    q = np.random.default_rng(0).normal(0.0, 0.5, size=(chains, D))
+    la.cholesky_batched.launches = 0
+    lp_c, g_c = model.logp_dlogp_fn(device="cuda")(
+        torch.as_tensor(q, device="cuda", dtype=torch.float32))
+    launches = la.cholesky_batched.launches
+    lp_r, g_r = models.gp_latent_logp_plain(q, jitter_rel=F32_PRIOR_JITTER, jitter_min=1e-4)
+    lp_c, g_c = lp_c.double().cpu(), g_c.double().cpu()
+    lp_err = float(((lp_c - lp_r).abs() / lp_r.abs()).max())
+    g_err = float((g_c - g_r).abs().max() / g_r.abs().max())
+    _, X, _ = models.gp_data(150)
+    x = torch.as_tensor(X[:, 0])
+    ls = torch.as_tensor(np.geomspace(0.05, 50.0, 200))
+    eta2 = torch.as_tensor([0.25, 5.5, 64.0])  # eta 0.5, near its posterior mean 2.35, 8
+    A = eta2[:, None, None, None] * torch.exp(
+        -0.5 * (x[:, None] - x[None, :]) ** 2 / ls[None, :, None, None] ** 2)
+    jitter = torch.clamp_min(F32_PRIOR_JITTER * eta2, 1e-4)[:, None, None, None]
+    A = (A + jitter * torch.eye(x.numel(), dtype=A.dtype)).reshape(-1, x.numel(), x.numel())
+    L = la.cholesky_batched(A.to("cuda", torch.float32)).double()
+    bad = int((~torch.isfinite(L).all(dim=(-2, -1))).sum())
+    back = torch.linalg.matrix_norm(L @ L.mT - A.cuda(), ord=2).cpu().reshape(3, -1) / jitter[:, 0, 0]
+    back = float(torch.nan_to_num(back, nan=float("inf")).max())
+    print(f"{label}: logp max rel err {lp_err:.3e} (tol {LATENT_LOGP_RTOL}); grad max abs err "
+          f"{g_err:.3e} of the largest entry (tol {LATENT_GRAD_RTOL}); {launches} Cholesky "
+          f"launches a logp+grad (expected 1); prior factors at {A.shape[0]} (ls, eta): "
+          f"{bad} non-finite, largest ||L L^T - A||_2 / jitter {back:.3f} (tol "
+          f"{LATENT_BACKWARD_TOL})")
+    if not (lp_err < LATENT_LOGP_RTOL and g_err < LATENT_GRAD_RTOL and launches == 1
+            and bad == 0 and back < LATENT_BACKWARD_TOL):
+        raise AssertionError(f"{label}: the card's float32 model is not the float64 one "
+                             "with the same jitter")
+
+
+def predictive_moments(gp, Xnew, post, chunk=1600, device="cpu", dtype=torch.float64):
+    """Marginal.predict's (mean, variance) at Xnew with the noise, by
+    default on the CPU in float64, at every draw of `post` (ls, eta,
+    sigma): two (draws, points) float64 arrays."""
+    from pymc_tpu_torch.models import GP_SCALARS
+
+    fn = torch.func.vmap(gp.predict_fn(Xnew, diag=True, pred_noise=True, device=device,
+                                       dtype=dtype))
+    points = {k: torch.as_tensor(post[k].values.reshape(-1), dtype=dtype, device=device)
+              for k in GP_SCALARS}
+    N = next(iter(points.values())).shape[0]
+    parts = [fn({k: v[i:i + chunk] for k, v in points.items()}) for i in range(0, N, chunk)]
+    return tuple(torch.cat([p[j] for p in parts]).double().cpu().numpy() for j in (0, 1))
+
+
+def run_gp_predictive(card, idata):
+    """Phase 9b: sample_posterior_predictive of the conditional at
+    GP_PRED_POINTS points on [0, 12] over phase 6's draws on the card, once
+    for each seed of GP_PRED_SEEDS; returns {kernel: launches} summed over
+    the runs."""
+    import pymc_tpu_torch as pm
+    from pymc_tpu_torch.models import gp_marginal_model
+
+    phase("9b GP posterior predictive over phase 6's draws")
+    model, gp = gp_marginal_model(150, return_gp=True)
+    Xnew = np.linspace(0.0, 12.0, GP_PRED_POINTS)[:, None]
+    with model:
+        gp.conditional("f_pred", Xnew, pred_noise=True)
+    t0 = time.perf_counter()
+    mu, var = predictive_moments(gp, Xnew, idata.posterior)
+    N = mu.shape[0]
+    mean_ref = mu.mean(axis=0)
+    var_ref = var.mean(axis=0) + mu.var(axis=0)
+    # the draws' spread around the predictive means is the only Monte Carlo
+    # noise: y_d = mu_d + e_d, e_d ~ N(0, var_d) independent
+    se_mean = np.sqrt(var.mean(axis=0) / N)
+    se_var = np.sqrt(4.0 * ((mu - mean_ref) ** 2 * var).sum(axis=0) + 2.0 * (var**2).sum(axis=0)) / N
+    at = [0, int(np.abs(Xnew[:, 0] - 10.0).argmin()), GP_PRED_POINTS - 1]
+    print(f"predict on the CPU in float64 over the {N} draws: {time.perf_counter() - t0:.1f} s; "
+          f"at x = {Xnew[at, 0].round(3).tolist()} mean {mean_ref[at].round(4).tolist()}, "
+          f"variance {var_ref[at].round(4).tolist()}")
+    # the same predict on the card in float32: how far the card's means and
+    # variances alone move the draws' moments
+    mu_c, var_c = predictive_moments(gp, Xnew, idata.posterior, device="cuda",
+                                     dtype=torch.float32)
+    d_mean = (mu_c.mean(axis=0) - mean_ref) / se_mean
+    d_var = (var_c.mean(axis=0) + mu_c.var(axis=0) - var_ref) / se_var
+    print(f"predict on the card in float32: its mean of the means off the CPU's by at most "
+          f"{np.abs(d_mean).max():.4f} standard errors (x = {Xnew[np.abs(d_mean).argmax(), 0]:.3f}), "
+          f"its variance by {np.abs(d_var).max():.4f}")
+    total = {}
+    for seed in GP_PRED_SEEDS:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        pp, launches = counted(lambda: pm.sample_posterior_predictive(
+            idata, model=model, var_names=["f_pred"], random_seed=seed,
+            return_inferencedata=False, device="cuda",
+        ))
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        draws = pp["f_pred"].astype(np.float64)
+        C, D = idata.posterior["ls"].shape
+        y = draws.reshape(C * D, GP_PRED_POINTS)
+        bad = int((~np.isfinite(y)).any(axis=1).sum())
+        print(f"seed {seed}: {C * D} draws of f_pred at {GP_PRED_POINTS} points in {wall:.3f} s; "
+              f"peak device memory {peak / 2**30:.3f} GiB ({peak} B); draws with a non-finite "
+              f"value {bad}; launches {launches}  [{card}]")
+        expect = {"kick_drift": 0, "final_kick": 0, "nuts_leaf": 0, "cholesky": 2}
+        if draws.shape != (C, D, GP_PRED_POINTS) or bad or launches != expect:
+            raise AssertionError(f"predictive: shape {draws.shape}, {bad} non-finite draws, "
+                                 f"launches {launches} != {expect}")
+        z_mean = (y.mean(axis=0) - mean_ref) / se_mean
+        z_var = (y.var(axis=0) - var_ref) / se_var
+        print(f"seed {seed}: max |z| of the draws' mean {np.abs(z_mean).max():.2f} (x = "
+              f"{Xnew[np.abs(z_mean).argmax(), 0]:.3f}), of their variance "
+              f"{np.abs(z_var).max():.2f} (x = {Xnew[np.abs(z_var).argmax(), 0]:.3f}); mean |z| "
+              f"{np.abs(z_mean).mean():.2f} and {np.abs(z_var).mean():.2f}; z of the mean at x = "
+              f"{Xnew[at[1], 0]:.3f} {z_mean[at[1]]:+.2f} (limit {GP_PRED_Z})")
+        if not (np.abs(z_mean).max() <= GP_PRED_Z and np.abs(z_var).max() <= GP_PRED_Z):
+            raise AssertionError("posterior predictive moments disagree with Marginal.predict")
+        total = {k: total.get(k, 0) + v for k, v in launches.items()}
+    return total
+
+
 def pair_records(launches, errs, times, shape):
     """The pair's records of the `kernels` line, timed at `shape`."""
     records = []
@@ -1201,14 +1458,15 @@ def main():
     check_logp()
     idata, launches, max_rhat = run_sampler(card)
     check_posterior(idata, launches, max_rhat)
-    gp_launches = run_gp(card)
+    gp_launches, gp_idata = run_gp(card)
     stress_launches = run_stress(card)
     smc_launches = run_smc(card)
-    total = {k: launches[k] + gp_launches[k] + stress_launches[k] + smc_launches[k]
-             for k in launches}
+    check_gp_forms()
+    paths = {"radon": launches, "GP": gp_launches, "stress": stress_launches,
+             "SMC": smc_launches, "GP predictive": run_gp_predictive(card, gp_idata)}
+    total = {k: sum(p[k] for p in paths.values()) for k in launches}
     kernels = kernel_records(total, errs, times, leaf, chol_err, chol_times)
-    print(f"launches: radon {launches}; GP {gp_launches}; stress {stress_launches}; "
-          f"SMC {smc_launches}")
+    print("launches: " + "; ".join(f"{name} {p}" for name, p in paths.items()))
     print(f"total wall {time.perf_counter() - T_START:.1f} s")
     # the pair at the NUTS shape, where the kernels line held it until it
     # moved to the stress GLM's (1024, 10004); the Cholesky at SMC's stack

@@ -1,6 +1,6 @@
 """pymc_tpu_torch — the PyTorch/CUDA port of pymc_tpu.
 
-Three slices so far. The radon-GLM main path of `bench.py`: the model
+The radon-GLM main path of `bench.py`: the model
 graph, Normal and HalfCauchy with the log transform, jittered starting
 points, dual averaging and diagonal Welford adaptation, batched NUTS whose
 leapfrog runs through hand-written CUDA kernels on the card, and R-hat/ESS.
@@ -10,7 +10,10 @@ factored by a hand-written batched Cholesky kernel on the card. The ChEES
 path: Bernoulli and `sample(..., sampler="chees")`, which samples the
 10,004-parameter stress GLM at 1024 chains through the leapfrog kernels,
 and `var_names`, which keeps the chosen variables on the card until they
-are postprocessed. The package
+are postprocessed. Tempered SMC (`sample_smc`) on the mixture models.
+The rest of the GP module (every covariance, TP, the sparse, Kronecker and
+Hilbert-space GPs, `conditional` and `predict`) and prior and posterior
+predictive sampling. The package
 imports torch and never jax; kernels are built at first use, never at
 import. Entry points run on the card unless `device="cpu"` is asked for.
 
@@ -25,16 +28,18 @@ import. Entry points run on the card unless `device="cpu"` is asked for.
 
 from . import distributions, gp
 from .distributions import (
-    Bernoulli, Dirichlet, Gamma, HalfCauchy, HalfNormal, Mixture, MvNormal, Normal,
-    NormalMixture,
+    Bernoulli, ChiSquared, Dirichlet, Gamma, HalfCauchy, HalfNormal, KroneckerNormal, Mixture,
+    MvNormal, MvStudentT, Normal, NormalMixture,
 )
-from .model import Deterministic, Model
+from .model import Deterministic, Model, Potential
+from .sampling.forward import sample_posterior_predictive, sample_prior_predictive
 from .sampling.mcmc import sample
 from .smc.sampling import sample_smc
 from .stats.convergence import ess, rhat
 
 __all__ = [
-    "Model", "Normal", "HalfNormal", "HalfCauchy", "Gamma", "MvNormal", "Bernoulli",
-    "Dirichlet", "Mixture", "NormalMixture", "Deterministic", "distributions",
-    "gp", "sample", "sample_smc", "rhat", "ess",
+    "Model", "Normal", "HalfNormal", "HalfCauchy", "Gamma", "ChiSquared", "MvNormal",
+    "MvStudentT", "KroneckerNormal", "Bernoulli", "Dirichlet", "Mixture", "NormalMixture",
+    "Deterministic", "Potential", "distributions", "gp", "sample", "sample_smc",
+    "sample_prior_predictive", "sample_posterior_predictive", "rhat", "ess",
 ]

@@ -1,9 +1,10 @@
 """Conversion of sampler output to InferenceData.
 
 Counterpart of `pymc_tpu/backends/arviz.py::to_inference_data` (:52;
-reference pymc/backends/arviz.py:613): the posterior and sample_stats
-groups with the model's dims and coords, and the observed data; and the
-`var_names` subset of the posterior (`pymc_tpu/sampling/mcmc.py:977-985`).
+reference pymc/backends/arviz.py:613): the posterior, sample_stats, prior,
+prior_predictive, posterior_predictive and predictions groups with the
+model's dims and coords, and the observed data; and the `var_names` subset
+of the posterior (`pymc_tpu/sampling/mcmc.py:977-985`).
 """
 
 from __future__ import annotations
@@ -44,31 +45,46 @@ def _var_dims(model, name, trailing_shape):
     )
 
 
-def to_inference_data(model, posterior, sample_stats, attrs=None):
-    """posterior: {name: (chain, draw, *shape)}; sample_stats:
-    {name: (chain, draw)} -> InferenceData."""
-    coords = {k: np.asarray(v) for k, v in model.coords.items()}
-    idata = InferenceData()
-
-    post = Dataset(
+def _dataset(model, draws, coords):
+    """{name: (chain, draw, *shape)} -> Dataset with the model's dims."""
+    return Dataset(
         {
             name: DataVar(
-                name, arr, ("chain", "draw") + _var_dims(model, name, arr.shape[2:]),
-                coords,
+                name, arr, ("chain", "draw") + _var_dims(model, name, arr.shape[2:]), coords
             )
-            for name, arr in posterior.items()
+            for name, arr in draws.items()
         },
         coords,
     )
-    post.attrs.update(attrs or {})
-    idata.add_group("posterior", post)
 
-    stats = Dataset(
-        {k: DataVar(k, np.asarray(v), ("chain", "draw"), coords) for k, v in sample_stats.items()},
-        coords,
-    )
-    stats.attrs.update(attrs or {})
-    idata.add_group("sample_stats", stats)
+
+def to_inference_data(model, posterior=None, sample_stats=None, attrs=None, prior=None,
+                      prior_predictive=None, posterior_predictive=None, predictions=None):
+    """posterior, prior, prior_predictive, posterior_predictive, predictions:
+    {name: (chain, draw, *shape)}; sample_stats: {name: (chain, draw)} ->
+    InferenceData with those groups (each one given) and the observed data."""
+    coords = {k: np.asarray(v) for k, v in model.coords.items()}
+    idata = InferenceData()
+
+    if posterior is not None:
+        post = _dataset(model, posterior, coords)
+        post.attrs.update(attrs or {})
+        idata.add_group("posterior", post)
+
+    if sample_stats is not None:
+        stats = Dataset(
+            {k: DataVar(k, np.asarray(v), ("chain", "draw"), coords)
+             for k, v in sample_stats.items()},
+            coords,
+        )
+        stats.attrs.update(attrs or {})
+        idata.add_group("sample_stats", stats)
+
+    for group, draws in (("prior", prior), ("prior_predictive", prior_predictive),
+                         ("posterior_predictive", posterior_predictive),
+                         ("predictions", predictions)):
+        if draws is not None:
+            idata.add_group(group, _dataset(model, draws, coords))
 
     obs = {}
     for orv in model.observed_RVs:

@@ -1,9 +1,9 @@
-"""Continuous univariate distributions: Normal, HalfNormal, HalfCauchy and
-Gamma.
+"""Continuous univariate distributions: Normal, HalfNormal, HalfCauchy,
+Gamma and ChiSquared.
 
 Counterpart of `pymc_tpu/distributions/continuous.py` (Normal :149,
-HalfNormal :250, HalfCauchy :799, Gamma :830; reference
-pymc/distributions/continuous.py:445, :822, :2330, :2415).
+HalfNormal :250, HalfCauchy :799, Gamma :830, ChiSquared :945; reference
+pymc/distributions/continuous.py:445, :822, :2330, :2415, :2659).
 Densities are elementwise tensor expressions; an invalid parameter gives
 -inf and never raises, and a value outside the support gives -inf. Draws
 (`_sample`) follow the JAX package's: Normal and HalfNormal from standard
@@ -21,7 +21,7 @@ from ..graph import apply
 from .dist_math import check_parameters, log_normal, logpow
 from .distribution import Continuous, as_param, standard_normal, standard_uniform
 
-__all__ = ["Normal", "HalfNormal", "HalfCauchy", "Gamma"]
+__all__ = ["Normal", "HalfNormal", "HalfCauchy", "Gamma", "ChiSquared"]
 
 _LOG_2_OVER_PI = math.log(2.0 / math.pi)
 _SQRT_2_OVER_PI = math.sqrt(2.0 / math.pi)
@@ -148,3 +148,22 @@ class Gamma(Continuous):
 
     def _support_point(self, alpha, beta):
         return alpha / beta
+
+
+class ChiSquared(Continuous):
+    """Reference continuous.py:2659: Gamma(nu / 2, 1 / 2)."""
+
+    param_names = ("nu",)
+    support = "positive"
+
+    def __dist_init__(self, nu):
+        self.nu = as_param(nu)
+
+    def _logp(self, value, nu):
+        return Gamma._logp(self, value, nu / 2.0, torch.full_like(nu, 0.5))
+
+    def _sample(self, generator, shape, nu):
+        return 2.0 * standard_gamma(generator, (nu / 2.0).expand(shape))
+
+    def _support_point(self, nu):
+        return nu

@@ -1,7 +1,11 @@
-"""Gaussian process module (reference pymc/gp/__init__.py), cut to the
-marginal and latent GP paths."""
+"""Gaussian process module (reference pymc/gp/__init__.py)."""
 
 from . import cov, mean, util
-from .gp import Latent, Marginal
+from .gp import TP, Latent, LatentKron, Marginal, MarginalApprox, MarginalKron, MarginalSparse
+from .hsgp_approx import HSGP, HSGPPeriodic, approx_hsgp_hyperparams, set_boundary
 
-__all__ = ["util", "cov", "mean", "Latent", "Marginal"]
+__all__ = [
+    "util", "cov", "mean", "Latent", "Marginal", "MarginalApprox", "MarginalSparse",
+    "MarginalKron", "LatentKron", "TP", "HSGP", "HSGPPeriodic", "set_boundary",
+    "approx_hsgp_hyperparams",
+]

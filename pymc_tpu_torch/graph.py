@@ -37,6 +37,7 @@ __all__ = [
     "evaluate",
     "apply",
     "ancestors",
+    "place_constants",
 ]
 
 
@@ -285,8 +286,9 @@ def _parents(node):
     return []
 
 
-def ancestors(nodes):
-    """All transitive ancestor Nodes (including the inputs), deduplicated."""
+def ancestors(nodes, stop=()):
+    """All transitive ancestor Nodes (including the inputs), deduplicated;
+    the parents of a node whose id is in `stop` are not walked."""
     seen = {}
     stack = [n for n in nodes if isinstance(n, Node)]
     while stack:
@@ -294,5 +296,19 @@ def ancestors(nodes):
         if id(n) in seen:
             continue
         seen[id(n)] = n
-        stack.extend(_parents(n))
+        if id(n) not in stop:
+            stack.extend(_parents(n))
     return list(seen.values())
+
+
+def place_constants(nodes, device, dtype):
+    """{id(node): tensor}: every ConstantNode among the ancestors of `nodes`
+    on `device`, floats cast to `dtype` (integers keep their type); a ready
+    memo for `evaluate`."""
+    return {
+        id(c): c.value.to(
+            device=device, dtype=dtype if c.value.is_floating_point() else c.value.dtype
+        )
+        for c in ancestors(nodes)
+        if isinstance(c, ConstantNode)
+    }

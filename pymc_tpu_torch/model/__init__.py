@@ -1,3 +1,3 @@
-from .core import Deterministic, Model, modelcontext
+from .core import Deterministic, Model, Potential, modelcontext
 
-__all__ = ["Model", "modelcontext", "Deterministic"]
+__all__ = ["Model", "modelcontext", "Deterministic", "Potential"]

@@ -28,9 +28,10 @@ from ..graph import (
     ObservedRV,
     ancestors,
     as_node,
+    place_constants,
 )
 
-__all__ = ["Model", "modelcontext", "Deterministic"]
+__all__ = ["Model", "modelcontext", "Deterministic", "Potential"]
 
 
 class _ContextStack(threading.local):
@@ -71,6 +72,7 @@ class Model:
         self.free_RVs = []
         self.observed_RVs = []
         self.deterministics = []
+        self.potentials = []
         # {rv name: initval}, in the constrained space (reference
         # Model.rvs_to_initial_values)
         self.rvs_to_initial_values = {}
@@ -178,10 +180,13 @@ class Model:
         return self.add_named_variable(rv, dims)
 
     # ------------------------------------------------------------- density
+    def _roots(self):
+        return self.free_RVs + self.observed_RVs + self.deterministics + self.potentials
+
     def constants(self):
-        """Every ConstantNode the model's densities and deterministics read."""
-        roots = self.free_RVs + self.observed_RVs + self.deterministics
-        return [n for n in ancestors(roots) if isinstance(n, ConstantNode)]
+        """Every ConstantNode the model's densities, deterministics and
+        potentials read."""
+        return [n for n in ancestors(self._roots()) if isinstance(n, ConstantNode)]
 
     def placed_constants(self, device=None, dtype=None):
         """{id(node): tensor} with every constant on `device` (default: the
@@ -190,21 +195,16 @@ class Model:
         once per leaf. The density functions below take the same `device`
         and `dtype`."""
         device = resolve_device(device)
-        dtype = dtype or floatX(device)
-        return {
-            id(c): c.value.to(
-                device=device,
-                dtype=dtype if c.value.is_floating_point() else c.value.dtype,
-            )
-            for c in self.constants()
-        }
+        return place_constants(self._roots(), device, dtype or floatX(device))
 
     def logp_terms_fn(self, device=None, dtype=None):
         """fn(value_dict) -> {name: summed logp term}, free RVs (with their
-        jacobians) first, then observed RVs — the reference's order."""
+        jacobians) first, then observed RVs, then potentials — the
+        reference's order."""
         placed = self.placed_constants(device, dtype)
         free_RVs = list(self.free_RVs)
         observed_RVs = list(self.observed_RVs)
+        potentials = list(self.potentials)
 
         def fn(value_dict):
             memo = dict(placed)
@@ -221,6 +221,8 @@ class Model:
             for orv in observed_RVs:
                 lp = orv.dist.logp(orv._eval(env, memo), env, memo)
                 terms[orv.name] = lp.sum()
+            for pot in potentials:
+                terms[pot.name] = pot._eval(env, memo).sum()
             return terms
 
         return fn
@@ -366,4 +368,16 @@ def Deterministic(name, var, model=None, dims=None):
         node = DeterministicNode(lambda x: x.clone(), (node,))
     node.name = name
     model.deterministics.append(node)
+    return model.add_named_variable(node, dims)
+
+
+def Potential(name, var, model=None, dims=None):
+    """Add an arbitrary term to the model's logp (reference core.py:2554);
+    its sum joins the density with the observed terms."""
+    model = modelcontext(model)
+    node = var if isinstance(var, DeterministicNode) else as_node(var)
+    if not isinstance(node, DeterministicNode):
+        node = DeterministicNode(lambda x: x.clone(), (node,))
+    node.name = name
+    model.potentials.append(node)
     return model.add_named_variable(node, dims)

@@ -2,7 +2,10 @@
 
 `gp_marginal_model` is BASELINE config #4 in the form the JAX package
 benchmarks (`benchmarks/suite.py::case_gp_marginal`): a marginal GP with an
-`eta**2 * ExpQuad` kernel and Gaussian noise on n sorted inputs.
+`eta**2 * ExpQuad` kernel and Gaussian noise on n sorted inputs;
+`gp_latent_model` is the same config in its named, latent form
+(`suite.py::case_gp`) and `gp_hsgp_model` in its basis-function form
+(`suite.py::case_gp_hsgp`).
 `stress_glm_model` is BASELINE config #3 (`suite.py::_stress_model`): the
 hierarchical logistic GLM with 10,004 free parameters that
 `suite.py::case_stress_chees` samples with ChEES. `smc_mixture_model` is
@@ -19,7 +22,10 @@ from __future__ import annotations
 import numpy as np
 
 __all__ = [
-    "gp_data", "gp_marginal_model", "GP_SAMPLE_KWARGS", "GP_SMOKE_KWARGS", "GP_SCALARS",
+    "gp_data", "gp_marginal_model", "gp_latent_model", "gp_latent_logp_plain",
+    "gp_hsgp_model", "gp_tp_model",
+    "gp_approx_model", "gp_grid_data", "gp_kron_model", "GP_SAMPLE_KWARGS",
+    "GP_SMOKE_KWARGS", "GP_LATENT_SAMPLE_KWARGS", "GP_SCALARS",
     "RADON_SAMPLE_KWARGS",
     "stress_glm_model", "STRESS_HYPERS", "STRESS_SAMPLE_KWARGS",
     "smc_mixture_model", "SMC_SAMPLE_KWARGS", "SMC_SEEDS", "smc_chain_estimates",
@@ -42,6 +48,13 @@ GP_SAMPLE_KWARGS = dict(draws=300, tune=300, chains=64, random_seed=0, mass_adap
 # the least that converges it, and its 128 draws take some 35 s
 GP_SMOKE_KWARGS = dict(GP_SAMPLE_KWARGS, draws=200, tune=200)
 GP_SCALARS = ("ls", "eta", "sigma")
+# the latent GP (case_gp) at 64 chains as scripts/probe_torch_gp_latent.py
+# samples it: the suite's arguments cut in depth from 300/300 to 100/100,
+# the least the tests allow. Its 64 lock-step trees take ~1,000 leapfrogs a
+# draw (mean depth 8.16, the deepest tree at the limit of 10), so 100/100
+# took 2,685 s of sampling on the H100, past chip_smoke.py's whole limit;
+# it runs in that script instead
+GP_LATENT_SAMPLE_KWARGS = dict(GP_SAMPLE_KWARGS, draws=100, tune=100)
 
 
 def gp_data(n=150):
@@ -53,9 +66,11 @@ def gp_data(n=150):
     return n, X, y
 
 
-def gp_marginal_model(n=150, pm=None):
+def gp_marginal_model(n=150, pm=None, return_gp=False):
     """ls ~ Gamma(2, 1), eta ~ HalfNormal(2), sigma ~ HalfNormal(1);
-    y ~ MvNormal(0, eta^2 ExpQuad(X; ls) + sigma^2 I + 1e-6 I)."""
+    y ~ MvNormal(0, eta^2 ExpQuad(X; ls) + sigma^2 I + 1e-6 I). With
+    return_gp=True, (model, gp), so that `gp.conditional` and `gp.predict`
+    can be called on it."""
     if pm is None:
         import pymc_tpu_torch as pm
     _, X, y = gp_data(n)
@@ -65,6 +80,140 @@ def gp_marginal_model(n=150, pm=None):
         gp = pm.gp.Marginal(cov_func=eta**2 * pm.gp.cov.ExpQuad(1, ls=ls))
         sigma = pm.HalfNormal("sigma", 1)
         gp.marginal_likelihood("y", X=X, y=y, sigma=sigma)
+    return (m, gp) if return_gp else m
+
+
+def gp_latent_model(n=150, pm=None, jitter=None):
+    """ls ~ Gamma(2, 1), eta ~ HalfNormal(2), sigma ~ HalfNormal(1);
+    f = L v with v ~ N(0, I) and L L^T = eta^2 ExpQuad(X; ls) + jitter I
+    (the default jitter is dtype-aware: 1e-6 in float64, at least 1e-4 and
+    `gp.gp.F32_PRIOR_JITTER` eta^2 in float32, unless `jitter` is given);
+    y ~ Normal(f, sigma) (`benchmarks/suite.py::case_gp`). n + 3 free
+    parameters; one Cholesky a logp."""
+    if pm is None:
+        import pymc_tpu_torch as pm
+    _, X, y = gp_data(n)
+    with pm.Model() as m:
+        ls = pm.Gamma("ls", 2, 1)
+        eta = pm.HalfNormal("eta", 2)
+        gp = pm.gp.Latent(cov_func=eta**2 * pm.gp.cov.ExpQuad(1, ls=ls))
+        f = gp.prior("f", X=X, jitter=jitter)
+        sigma = pm.HalfNormal("sigma", 1)
+        pm.Normal("y", f, sigma, observed=y)
+    return m
+
+
+def gp_latent_logp_plain(q, n=150, jitter_rel=0.0, jitter_min=1e-6):
+    """gp_latent_model's logp and gradient at q (C, n + 3), the flat points
+    [log ls, log eta, v (n), log sigma], written out in float64 apart from
+    the port's GP classes and its Cholesky kernel, with the prior jitter
+    max(jitter_min, jitter_rel eta^2): the defaults give float64's model,
+    (gp.gp.F32_PRIOR_JITTER, 1e-4) float32's. Returns (logp (C,), grad (C,
+    n + 3)) on the CPU."""
+    import torch
+
+    from .ops.linalg import cholesky_plain
+
+    _, X, y = gp_data(n)
+    x, y = torch.as_tensor(X[:, 0]), torch.as_tensor(y)
+    q = torch.as_tensor(q, dtype=torch.float64).detach().cpu().requires_grad_(True)
+    log_ls, log_eta, v, log_sigma = q[:, 0], q[:, 1], q[:, 2:-1], q[:, -1]
+    ls, eta, sigma = log_ls.exp(), log_eta.exp(), log_sigma.exp()
+    d2 = (x[:, None] - x[None, :]) ** 2
+    eta2 = (eta**2)[:, None, None]
+    j = torch.clamp_min(jitter_rel * eta2, jitter_min)
+    K = eta2 * torch.exp(-0.5 * d2 / ls[:, None, None] ** 2) + j * torch.eye(n, dtype=q.dtype)
+    f = (cholesky_plain(K) @ v[..., None])[..., 0]
+    D = torch.distributions
+    logp = (
+        D.Gamma(2.0, 1.0).log_prob(ls) + log_ls
+        + D.HalfNormal(2.0).log_prob(eta) + log_eta
+        + D.Normal(0.0, 1.0).log_prob(v).sum(-1)
+        + D.HalfNormal(1.0).log_prob(sigma) + log_sigma
+        + D.Normal(f, sigma[:, None]).log_prob(y).sum(-1)
+    )
+    (grad,) = torch.autograd.grad(logp.sum(), q)
+    return logp.detach(), grad
+
+
+def gp_hsgp_model(n=150, m=32, pm=None):
+    """case_gp's model with f from the Hilbert-space approximation of the
+    same kernel, m basis functions on 1.5 times the inputs' half-range
+    (`benchmarks/suite.py::case_gp_hsgp`); no Cholesky."""
+    if pm is None:
+        import pymc_tpu_torch as pm
+    _, X, y = gp_data(n)
+    with pm.Model() as model:
+        ls = pm.Gamma("ls", 2, 1)
+        eta = pm.HalfNormal("eta", 2)
+        gp = pm.gp.HSGP(m=[m], c=1.5, cov_func=eta**2 * pm.gp.cov.ExpQuad(1, ls=ls))
+        f = gp.prior("f", X=X)
+        sigma = pm.HalfNormal("sigma", 1)
+        pm.Normal("y", f, sigma, observed=y)
+    return model
+
+
+def gp_tp_model(n=150, nu=5.0, pm=None, jitter=None):
+    """case_gp's model with f from a Student-t process (`gp.TP`, nu degrees
+    of freedom) in place of the latent GP: n + 4 free parameters."""
+    if pm is None:
+        import pymc_tpu_torch as pm
+    _, X, y = gp_data(n)
+    with pm.Model() as m:
+        ls = pm.Gamma("ls", 2, 1)
+        eta = pm.HalfNormal("eta", 2)
+        tp = pm.gp.TP(cov_func=eta**2 * pm.gp.cov.ExpQuad(1, ls=ls), nu=nu)
+        f = tp.prior("f", X=X, jitter=jitter)
+        pm.Normal("y", f, pm.HalfNormal("sigma", 1), observed=y)
+    return m
+
+
+def gp_approx_model(approx="VFE", n=150, n_inducing=20, pm=None, jitter=None):
+    """case_gp_marginal's model with the sparse `gp.MarginalApprox` (FITC,
+    VFE or DTC) on n_inducing inducing points evenly spaced on [0, 10]."""
+    if pm is None:
+        import pymc_tpu_torch as pm
+    _, X, y = gp_data(n)
+    Xu = np.linspace(0.0, 10.0, n_inducing)[:, None]
+    with pm.Model() as m:
+        ls = pm.Gamma("ls", 2, 1)
+        eta = pm.HalfNormal("eta", 2)
+        gp = pm.gp.MarginalApprox(approx=approx, cov_func=eta**2 * pm.gp.cov.ExpQuad(1, ls=ls))
+        gp.marginal_likelihood("y", X=X, Xu=Xu, y=y, sigma=pm.HalfNormal("sigma", 1),
+                               jitter=jitter)
+    return m
+
+
+def gp_grid_data(n1=15, n2=10):
+    """(x1 (n1, 1) on [0, 10], x2 (n2, 1) on [0, 5], y (n1 n2,)): a noisy
+    sin(x1) + cos(x2) on their grid, x1 the slow axis, from seed 5."""
+    rng = np.random.default_rng(5)
+    x1 = np.linspace(0.0, 10.0, n1)[:, None]
+    x2 = np.linspace(0.0, 5.0, n2)[:, None]
+    f = np.sin(x1[:, 0])[:, None] + np.cos(x2[:, 0])[None, :]
+    return x1, x2, f.reshape(-1) + rng.normal(0, 0.3, n1 * n2)
+
+
+def gp_kron_model(kind="latent", n1=15, n2=10, pm=None, jitter=None):
+    """A GP on gp_grid_data's grid with the kernel eta^2 ExpQuad(x1; ls1)
+    (x) ExpQuad(x2; ls2): `gp.LatentKron` with Normal noise (kind="latent",
+    one Cholesky a factor) or `gp.MarginalKron` (kind="marginal", one
+    eigendecomposition a factor)."""
+    if pm is None:
+        import pymc_tpu_torch as pm
+    x1, x2, y = gp_grid_data(n1, n2)
+    with pm.Model() as m:
+        ls1 = pm.Gamma("ls1", 2, 1)
+        ls2 = pm.Gamma("ls2", 2, 1)
+        eta = pm.HalfNormal("eta", 2)
+        covs = [eta**2 * pm.gp.cov.ExpQuad(1, ls=ls1), pm.gp.cov.ExpQuad(1, ls=ls2)]
+        sigma = pm.HalfNormal("sigma", 1)
+        if kind == "latent":
+            f = pm.gp.LatentKron(cov_funcs=covs).prior("f", Xs=[x1, x2], jitter=jitter)
+            pm.Normal("y", f, sigma, observed=y)
+        else:
+            pm.gp.MarginalKron(cov_funcs=covs).marginal_likelihood("y", Xs=[x1, x2], y=y,
+                                                                   sigma=sigma)
     return m
 
 
