@@ -27,7 +27,9 @@ Phases, in order; any failure ends the script with a non-zero exit:
   4. logp     — the radon GLM's, the marginal GP's and the stress GLM's
                 (C, D) -> (logp, grad) on the card in float32 against the
                 port on the CPU in float64 (the stress GLM at its 1024
-                chains)
+                chains); the samplers' logp+grad replayed from a CUDA graph
+                (ops/cuda_graph.py) bitwise equal to the eager call, with
+                the same Cholesky launches, at the sampled models' shapes
   5. sampling — pymc_tpu_torch.sample on bench.build_model at bench.py's
                 many-chain configuration cut in depth (64 chains, tune 200,
                 draws 128, pooled mass and step, target_accept 0.95,
@@ -105,9 +107,30 @@ Phases, in order; any failure ends the script with a non-zero exit:
                 The latent GP sampled with NUTS (config #4's named form) is
                 scripts/probe_torch_gp_latent.py's: its deep lock-step trees
                 take longer than this script's time limit allows
+  10. inits   — the init family of `sample`:
+                10a. BASELINE config #2, the radon GLM with NUTS and
+                init="advi+adapt_diag" (10,000 ADVI steps) at phase 5's
+                configuration (models.RADON_ADVI_SAMPLE_KWARGS): ADVI's
+                losses finite and falling, one host read a chunk of 100
+                steps, phase 5's launch identities and no Cholesky, means
+                within 5 combined MCSE of the radon fixture, R-hat < 1.05;
+                10b. the radon GLM with a full mass (init=
+                "jitter+adapt_full", models.RADON_FULL_SAMPLE_KWARGS): the
+                whitened NUTS through the leaf kernel (the same identities),
+                one Cholesky launch at the start and one a window switch,
+                the final Sigma symmetric positive definite, the means and
+                R-hat as in 10a; 10c. find_MAP and find_hessian on config
+                #4's marginal GP on the card against the CPU in float64
+                (1e-3 relative, 1e-2 of the largest entry), one Cholesky an
+                evaluation, then sample(init="map")
+                (models.GP_MAP_SAMPLE_KWARGS) held to the GP fixture; 10d.
+                the KL objective and its gradient (ADVI, FullRankADVI) and
+                SVGD's Stein update of 100 particles at the radon GLM's
+                width on the card against the CPU in float64, rtol 1e-4
 
-Phase 3 also checks and times the Cholesky at SMC's (4, 3) stack and at
-phase 9's shapes, and phase 4 compares the two mixture models' logp/grad
+Phase 3 also checks and times the Cholesky at SMC's (4, 3) stack, at
+phase 9's shapes and at phase 10's (1, 175) and (1, 150), and its jvp under
+vmap at (3, 150, 150), the GP Hessian's, and phase 4 compares the two mixture models' logp/grad
 and SMC's tempered density on the card with the CPU. Each sampling or
 predictive phase sets every kernel's launch count to 0 just before it runs
 and reads the counts just after. The line before the last is one JSON
@@ -122,6 +145,7 @@ Usage:
 from __future__ import annotations
 
 import json
+import math
 import os
 import subprocess
 import sys
@@ -203,6 +227,12 @@ CHOL_TIMED = [(64, 150), (1024, 150), (8, 500), (4, 3)]
 # 12,800 draws, MarginalApprox's Kuu and B at 20 inducing points, the Kron
 # factors of the 15 x 10 grid
 CHOL_TIMED_GP = [(12800, 150), (12800, 100), (64, 20), (64, 15), (64, 10)]
+# phase 10's: the radon GLM's dense mass factor, the marginal GP's factor
+# at one MAP evaluation
+CHOL_TIMED_INIT = [(1, 175), (1, 150)]
+# the GP Hessian's forward-mode rule: the jvp of one (150, 150) factor under
+# vmap over its 3 tangents (one a free parameter)
+CHOL_JVP = (3, 150)
 CHOL_INDEFINITE = [150, 300, 500]
 # |L - L_plain| <= tol * n * max|L_plain|: float32 is tests/ops/test_linalg.py's bound
 CHOL_TOL = {torch.float32: 2e-5, torch.float64: 1e-12}
@@ -774,7 +804,7 @@ def check_cholesky(card):
         if not (bool((nonfinite == bad).all()) and err <= tol):
             raise AssertionError(f"cholesky kernel mishandles indefinite matrices at n = {n}")
     times = {}
-    for C, n in CHOL_TIMED + CHOL_TIMED_GP:
+    for C, n in CHOL_TIMED + CHOL_TIMED_GP + CHOL_TIMED_INIT:
         A = spd_stack(C, n, torch.float32, seed=1)
         calls = {
             "plain": lambda: la.cholesky_plain(A),
@@ -797,6 +827,7 @@ def check_cholesky(card):
               f"cholesky_ex {times[(C, n)]['library']:.5f} ms, bound {b_ms:.7f} ms "
               f"({b_by})  [{card}]")
     times["backward"] = chol_backward_times(card, *CHOL_TIMED[0])
+    times["jvp"] = chol_jvp_times(card, *CHOL_JVP)
     return err_main, times
 
 
@@ -832,6 +863,53 @@ def chol_backward_times(card, C, n):
     return out
 
 
+def chol_jvp_bound(k, n):
+    """Bound of one factorisation's jvp over k tangents in float32: A's lower
+    triangle and the k tangents read, L and the k tangents of L written;
+    n^3 / 3 multiply-adds for the factor and 4 k n^3 for the rule (two
+    triangular solves with n right-hand sides and one dense product)."""
+    n_bytes = (n * (n + 1) // 2 + k * n * n + n * n + k * n * n) * 4
+    return bound_ms(n_bytes, n**3 / 3 + 4 * k * n**3, torch.float32)
+
+
+def chol_jvp_times(card, k, n):
+    """The Cholesky's forward-mode rule as find_hessian runs it: jvp of one
+    (n, n) factor under vmap over k tangents, float32. The kernel with its
+    jvp rule is checked against jvp over cholesky_plain (rtol 1e-4 of the
+    largest entry) and timed against it and against jvp over
+    torch.linalg.cholesky_ex. Returns {name: device ms}."""
+    from pymc_tpu_torch.ops import linalg as la
+
+    A = spd_stack(1, n, torch.float32, seed=3)[0]
+    T = torch.randn(k, n, n, generator=torch.Generator(device="cuda").manual_seed(4),
+                    device="cuda")
+    T = T + T.mT
+
+    def jvp_of(fn):
+        return lambda: torch.func.vmap(lambda t: torch.func.jvp(fn, (A,), (t,)))(T)
+
+    calls = {"kernel": jvp_of(la.cholesky_batched), "plain": jvp_of(la.cholesky_plain),
+             "library": jvp_of(lambda a: torch.linalg.cholesky_ex(a)[0])}
+    before = la.cholesky_batched.launches
+    (L_k, dL_k), (L_p, dL_p) = calls["kernel"](), calls["plain"]()
+    launches = la.cholesky_batched.launches - before
+    err = max(float((x - y).abs().max() / y.abs().max()) for x, y in ((L_k, L_p), (dL_k, dL_p)))
+    print(f"cholesky jvp under vmap ({k} tangents, n = {n}): {launches} kernel launch(es); max "
+          f"abs err against the plain jvp {err:.3e} of the largest entry (tol 1e-4)")
+    if not (launches >= 1 and err < 1e-4):
+        raise AssertionError("the Cholesky's jvp rule on the card disagrees with the plain jvp")
+    measured = {k_: [] for k_ in calls}
+    order = ["plain", "kernel", "library"]
+    for k_ in order + order[::-1]:
+        measured[k_].append(cuda_ms(calls[k_]))
+    out = {k_: min(m[0] for m in v) for k_, v in measured.items()}
+    b_ms, b_by = chol_jvp_bound(k, n)
+    print(f"cholesky jvp ({k}, {n}, {n}) float32: kernel {out['kernel']:.5f} ms, plain "
+          f"{out['plain']:.5f} ms, jvp of cholesky_ex {out['library']:.5f} ms, bound "
+          f"{b_ms:.7f} ms ({b_by})  [{card}]")
+    return out
+
+
 def check_logp_on_card(label, model, chains=64):
     """(C, D) -> (logp, grad) at `chains` points, float32 on the card
     against float64 on the CPU: logp max relative error < 1e-4, grad max
@@ -851,10 +929,10 @@ def check_logp_on_card(label, model, chains=64):
         raise AssertionError(f"{label} logp/grad on the card disagrees with the CPU")
 
 
-def check_logp():
+def check_logp(card):
     """Phase 4: the radon GLM's, the marginal GP's, the stress GLM's and the
-    two mixture models' logp/grad on the card, and SMC's tempered
-    density."""
+    two mixture models' logp/grad on the card, SMC's tempered density, and
+    the samplers' logp+grad replayed from a CUDA graph."""
     import pymc_tpu_torch as pm
     from pymc_tpu_torch.models import (
         gp_marginal_model, mixture_model, smc_mixture_model, stress_glm_model,
@@ -868,6 +946,49 @@ def check_logp():
     check_logp_on_card("SMC mixture (config #5)", smc_mixture_model())
     check_logp_on_card("mixture (case_mixture)", mixture_model())
     check_smc_density()
+    check_graphed_logp(card)
+
+
+def check_graphed_logp(card):
+    """The samplers' logp+grad replayed from a CUDA graph (ops/cuda_graph.py)
+    against the eager call at the sampled models' (chains, D): outputs
+    bitwise equal over five inputs, the same Cholesky launches; host ms a
+    call of both (30 calls, synchronised at the end)."""
+    import pymc_tpu_torch as pm
+    from pymc_tpu_torch import models
+    from pymc_tpu_torch.ops import linalg as la
+
+    C, _ = stress_shape()
+    radon = bench_module().build_model(pm)
+    cases = [("radon", radon, 64), ("radon, one point (VI, MAP)", radon, 1),
+             ("GP marginal", models.gp_marginal_model(150), 64),
+             ("latent GP", models.gp_latent_model(150), 64),
+             ("stress GLM", models.stress_glm_model(), C)]
+    for label, model, chains in cases:
+        D = model.raveled_info().total_size
+        rng = np.random.default_rng(0)
+        qs = [torch.as_tensor(rng.normal(0.0, 0.3, size=(chains, D)), device="cuda",
+                              dtype=torch.float32) for _ in range(5)]
+        graphed = model.logp_dlogp_fn(device="cuda")
+        fns = {"eager": graphed.fn, "graphed": graphed}
+        outs, launches, ms = {}, {}, {}
+        for name, fn in fns.items():
+            la.cholesky_batched.launches = 0
+            outs[name] = [fn(q) for q in qs]
+            torch.cuda.synchronize()
+            launches[name] = la.cholesky_batched.launches
+            t0 = time.perf_counter()
+            for i in range(30):
+                fn(qs[i % 5])
+            torch.cuda.synchronize()
+            ms[name] = (time.perf_counter() - t0) / 30 * 1e3
+        same = all(torch.equal(a, b) for o, r in zip(outs["graphed"], outs["eager"])
+                   for a, b in zip(o, r))
+        print(f"{label} ({chains}, {D}) logp+grad: graphed bitwise equal to eager {same}; "
+              f"Cholesky launches {launches['graphed']} / {launches['eager']}; host ms a call "
+              f"eager {ms['eager']:.3f}, graphed {ms['graphed']:.3f}  [{card}]")
+        if not (same and launches["graphed"] == launches["eager"]):
+            raise AssertionError(f"{label}: the graphed logp+grad differs from the eager one")
 
 
 def check_smc_density():
@@ -1403,6 +1524,231 @@ def run_gp_predictive(card, idata):
     return total
 
 
+def check_means(label, post, names, reference):
+    """Each of `names`' posterior mean within 5 combined MCSE of the
+    pymc_tpu fixture `reference`, every draw finite, R-hat < 1.05; returns
+    the max R-hat."""
+    from pymc_tpu_torch.stats.convergence import mcse_mean, rhat
+
+    with open(reference) as f:
+        ref = json.load(f)["params"]
+    for name in post.keys():
+        if not np.isfinite(post[name].values).all():
+            raise AssertionError(f"{label}: non-finite draws in {name}")
+    max_rhat = max(float(np.nanmax(rhat(post[n].values))) for n in post.keys())
+    for name in names:
+        x = post[name].values.astype(np.float64)
+        se = float(np.hypot(mcse_mean(x), ref[name]["mcse"]))
+        z = (float(x.mean()) - ref[name]["mean"]) / se
+        print(f"{label} {name}: mean {float(x.mean()):.5f} (reference "
+              f"{ref[name]['mean']:.5f}), {z:+.2f} combined MCSE")
+        if not abs(z) <= 5.0:
+            raise AssertionError(f"{label}: {name} posterior mean is {z:+.2f} MCSE off")
+    print(f"{label}: max R-hat {max_rhat:.4f}")
+    if not max_rhat < 1.05:
+        raise AssertionError(f"{label}: max R-hat {max_rhat:.4f} >= 1.05")
+    return max_rhat
+
+
+def sampling_summary(label, idata, names, card):
+    """Print min-ESS/s, grad-evals/s, the walls, divergences and the mean
+    tree depth."""
+    from pymc_tpu_torch.stats.convergence import ess, grad_evals_per_sec
+
+    post, stats = idata.posterior, idata.sample_stats
+    wall = post.attrs["sampling_time"]
+    min_ess = min(float(np.nanmin(ess(post[n].values))) for n in names)
+    print(f"{label}: min-ESS/s {min_ess / wall:.3f} (min ESS {min_ess:.1f}); grad-evals/s "
+          f"{grad_evals_per_sec(idata):.1f}; sampling wall {wall:.2f} s; tuning wall "
+          f"{post.attrs['tuning_time']:.2f} s; divergences "
+          f"{int(stats['diverging'].values.sum())}; mean tree depth "
+          f"{float(stats['tree_depth'].values.mean()):.2f}  [{card}]")
+
+
+def leapfrogs_per_draw(idata, config):
+    """Batched NUTS leapfrogs a draw, tuning included, the step-size search
+    left out."""
+    a = idata.posterior.attrs
+    return (a["n_leapfrog"] - a["n_step_search"]) / (config["tune"] + config["draws"])
+
+
+def run_radon_advi(card):
+    """Phase 10a: BASELINE config #2, the radon GLM with NUTS and the ADVI
+    init (models.RADON_ADVI_SAMPLE_KWARGS); returns {kernel: launches}."""
+    import pymc_tpu_torch as pm
+    from pymc_tpu_torch.models import RADON_ADVI_SAMPLE_KWARGS as config
+
+    phase("10a radon with NUTS + ADVI init (BASELINE config #2)")
+    idata, launches = sample_counted(bench_module().build_model(pm), config)
+    a = idata.posterior.attrs
+    loss, reads, n_init = np.asarray(a["init_loss"]), a["init_host_reads"], config["n_init"]
+    fit_wall = a["init_time"]
+    first, last = float(loss[:1000].mean()), float(loss[-1000:].mean())
+    print(f"ADVI: {loss.size} steps in {fit_wall:.2f} s ({fit_wall / loss.size * 1e3:.3f} ms a "
+          f"step, sampling's generator and the draw of the starts included); loss mean of the "
+          f"first 1000 {first:.3f}, of the last 1000 {last:.3f}; host reads {reads} "
+          f"(expected {math.ceil(n_init / 100)})  [{card}]")
+    if not (loss.size == n_init and np.isfinite(loss).all() and last < first):
+        raise AssertionError("ADVI's losses are not finite or did not fall")
+    if reads != math.ceil(n_init / 100):
+        raise AssertionError(f"ADVI read the device {reads} times, not once a chunk")
+    check_launch_identities("radon ADVI init", a, launches)
+    if launches["cholesky"]:
+        raise AssertionError(f"radon ADVI init: {launches['cholesky']} Cholesky launches")
+    names = ["mu_a", "mu_b", "sigma_a", "sigma_b", "a", "b"]
+    sampling_summary("radon ADVI init", idata, names, card)
+    check_means("radon ADVI init", idata.posterior, SCALARS, REFERENCE)
+    print(f"radon ADVI init: leapfrogs a draw {leapfrogs_per_draw(idata, config):.1f}")
+    return launches
+
+
+def run_radon_full(card, radon_idata):
+    """Phase 10b: the radon GLM with a full mass (init="jitter+adapt_full",
+    models.RADON_FULL_SAMPLE_KWARGS): the dense factor from the Cholesky
+    kernel once at the start and once a window switch, the whitened NUTS
+    through the leaf kernel; its leapfrogs a draw against phase 5's
+    (`radon_idata`, or None when phase 5 did not run); returns {kernel:
+    launches}."""
+    import pymc_tpu_torch as pm
+    from pymc_tpu_torch.models import RADON_FULL_SAMPLE_KWARGS as config
+    from pymc_tpu_torch.models import RADON_SAMPLE_KWARGS
+    from pymc_tpu_torch.sampling.adaptation import build_schedule
+
+    phase("10b radon with a full mass")
+    idata, launches = sample_counted(bench_module().build_model(pm), config)
+    a = idata.posterior.attrs
+    check_launch_identities("radon full mass", a, launches)
+    switches = int(build_schedule(config["tune"])["switch_mass"].sum())
+    expect = 1 + switches
+    print(f"radon full mass: Cholesky launches {launches['cholesky']} (expected {expect}: the "
+          f"identity at the start and {switches} window switch(es))")
+    if launches["cholesky"] != expect:
+        raise AssertionError(f"radon full mass: {launches['cholesky']} Cholesky launches, "
+                             f"not {expect}")
+    sigma = np.asarray(a["inv_mass"], dtype=np.float64)
+    asym = float(np.abs(sigma - sigma.T).max() / np.abs(sigma).max())
+    eig = np.linalg.eigvalsh(0.5 * (sigma + sigma.T))
+    print(f"radon full mass: final Sigma {sigma.shape}, asymmetry {asym:.3e}, eigenvalues "
+          f"{eig.min():.4e} to {eig.max():.4e}")
+    D = bench_module().build_model(pm).raveled_info().total_size
+    if not (sigma.shape == (D, D) and asym < 1e-6 and eig.min() > 0):
+        raise AssertionError("radon full mass: the final Sigma is not symmetric positive definite")
+    names = ["mu_a", "mu_b", "sigma_a", "sigma_b", "a", "b"]
+    sampling_summary("radon full mass", idata, names, card)
+    check_means("radon full mass", idata.posterior, SCALARS, REFERENCE)
+    diag = ("not run" if radon_idata is None
+            else f"{leapfrogs_per_draw(radon_idata, RADON_SAMPLE_KWARGS):.1f}")
+    print(f"leapfrogs a draw: full mass {leapfrogs_per_draw(idata, config):.1f}, phase 5's "
+          f"diagonal {diag}")
+    return launches
+
+
+def run_gp_map(card):
+    """Phase 10c: find_MAP and find_hessian on config #4's marginal GP on
+    the card against the CPU in float64, then sample(init="map"); returns
+    {kernel: launches} summed over the three."""
+    import pymc_tpu_torch as pm
+    from pymc_tpu_torch.models import GP_MAP_SAMPLE_KWARGS as config
+    from pymc_tpu_torch.models import GP_SCALARS, gp_marginal_model
+
+    phase("10c MAP and the Hessian on the marginal GP, sample(init='map')")
+    t0 = time.perf_counter()
+    (point, res), map_launches = counted(lambda: pm.find_MAP(
+        model=gp_marginal_model(150), device="cuda", return_raw=True))
+    wall = time.perf_counter() - t0
+    ref = pm.find_MAP(model=gp_marginal_model(150), device="cpu")
+    err = max(abs(float(point[n]) / float(ref[n]) - 1.0) for n in GP_SCALARS)
+    at = {n: round(float(point[n]), 6) for n in GP_SCALARS}
+    print(f"find_MAP on the card: {res.nfev} evaluations in {wall:.3f} s, Cholesky launches "
+          f"{map_launches['cholesky']}; point {at}, max rel err against the CPU in float64 "
+          f"{err:.3e} (tol 1e-3)  [{card}]")
+    if not (err < 1e-3 and map_launches["cholesky"] == res.nfev):
+        raise AssertionError("find_MAP on the card disagrees with the CPU")
+    t0 = time.perf_counter()
+    H, hess_launches = counted(lambda: pm.find_hessian(point=ref, model=gp_marginal_model(150),
+                                                       device="cuda"))
+    wall = time.perf_counter() - t0
+    H_ref = pm.find_hessian(point=ref, model=gp_marginal_model(150), device="cpu")
+    h_err = float(np.abs(np.asarray(H, np.float64) - H_ref).max() / np.abs(H_ref).max())
+    print(f"find_hessian on the card: {wall:.3f} s, Cholesky launches "
+          f"{hess_launches['cholesky']}; max abs err {h_err:.3e} of the largest entry (tol "
+          f"1e-2)  [{card}]")
+    if not h_err < 1e-2:
+        raise AssertionError("find_hessian on the card disagrees with the CPU")
+    idata, launches = sample_counted(gp_marginal_model(150), config)
+    a = idata.posterior.attrs
+    check_launch_identities("GP init=map", a, launches)
+    expect = a["init_evaluations"] + hess_launches["cholesky"] + 1 + a["n_logp_grad"]
+    print(f"GP init=map: {a['init_evaluations']} MAP evaluations, init {a['init_time']:.2f} s; "
+          f"Cholesky launches {launches['cholesky']} (expected {expect}: one a MAP evaluation, "
+          f"the Hessian's, the mass factor, one a logp+grad)")
+    if launches["cholesky"] != expect:
+        raise AssertionError(f"GP init=map: {launches['cholesky']} Cholesky launches, not "
+                             f"{expect}")
+    sampling_summary("GP init=map", idata, list(GP_SCALARS), card)
+    check_means("GP init=map", idata.posterior, GP_SCALARS, GP_REFERENCE)
+    print(f"GP init=map: leapfrogs a draw {leapfrogs_per_draw(idata, config):.1f}")
+    return {k: map_launches[k] + hess_launches[k] + launches[k] for k in launches}
+
+
+def check_vi_objectives(card):
+    """Phase 10d: the KL objective and its gradient for ADVI and
+    FullRankADVI at radon's width, and SVGD's Stein update of 100
+    particles, on the card in float32 against the CPU in float64, given the
+    same normals and particles: rtol 1e-4."""
+    import pymc_tpu_torch as pm
+
+    phase("10d VI objectives on the card")
+    rng = np.random.default_rng(0)
+    model = bench_module().build_model(pm)
+    D = model.raveled_info().total_size
+    eps = rng.normal(size=(8, D))
+    for cls in (pm.ADVI, pm.FullRankADVI):
+        out = {}
+        for device in ("cuda", "cpu"):
+            inf = cls(model=model, random_seed=0, device=device)
+            dtype = inf.dtype
+            params = {k: torch.as_tensor(rng_params(k, v.shape, D), device=device, dtype=dtype)
+                      for k, v in inf.params.items()}
+            loss, grads = inf.loss_and_grad(params, torch.as_tensor(eps, device=device,
+                                                                    dtype=dtype))
+            out[device] = (float(loss), {k: g.double().cpu() for k, g in grads.items()})
+        loss_err = abs(out["cuda"][0] - out["cpu"][0]) / abs(out["cpu"][0])
+        g_err = max(float((out["cuda"][1][k] - g).abs().max() / g.abs().max())
+                    for k, g in out["cpu"][1].items())
+        print(f"{cls.__name__} KL objective: {out['cpu'][0]:.4f}; rel err {loss_err:.3e}, "
+              f"gradient max abs err {g_err:.3e} of the largest entry (tol 1e-4)")
+        if not (loss_err < 1e-4 and g_err < 1e-4):
+            raise AssertionError(f"{cls.__name__}: the KL objective on the card disagrees")
+    X = rng.normal(0.0, 0.5, size=(100, D))
+    phi = {}
+    for device in ("cuda", "cpu"):
+        svgd = pm.SVGD(n_particles=100, model=model, random_seed=0, device=device)
+        phi[device] = svgd._phi(torch.as_tensor(X, device=device, dtype=svgd.dtype)).double().cpu()
+    p_err = float((phi["cuda"] - phi["cpu"]).abs().max() / phi["cpu"].abs().max())
+    print(f"SVGD Stein update of 100 particles: max abs err {p_err:.3e} of the largest entry "
+          f"(tol 1e-4)")
+    if not p_err < 1e-4:
+        raise AssertionError("SVGD's Stein update on the card disagrees with the CPU")
+
+
+def rng_params(name, shape, D):
+    """Fixed VI parameters from seed 1: mu ~ N(0, 0.3), rho ~ N(-2, 0.3),
+    L_packed ~ N(0, 0.05) (its diagonal through softplus)."""
+    rng = np.random.default_rng(1)
+    loc, scale = {"mu": (0.0, 0.3), "rho": (-2.0, 0.3), "L_packed": (0.0, 0.05)}[name]
+    return rng.normal(loc, scale, size=shape)
+
+
+def run_init_family(card, radon_idata):
+    """Phase 10: the init family; returns {path: {kernel: launches}}."""
+    paths = {"radon ADVI init": run_radon_advi(card),
+             "radon full mass": run_radon_full(card, radon_idata),
+             "GP MAP": run_gp_map(card)}
+    check_vi_objectives(card)
+    return paths
+
+
 def pair_records(launches, errs, times, shape):
     """The pair's records of the `kernels` line, timed at `shape`."""
     records = []
@@ -1455,7 +1801,7 @@ def main():
     errs, times = check_kernels(card)
     leaf = check_leaf(card)
     chol_err, chol_times = check_cholesky(card)
-    check_logp()
+    check_logp(card)
     idata, launches, max_rhat = run_sampler(card)
     check_posterior(idata, launches, max_rhat)
     gp_launches, gp_idata = run_gp(card)
@@ -1463,7 +1809,8 @@ def main():
     smc_launches = run_smc(card)
     check_gp_forms()
     paths = {"radon": launches, "GP": gp_launches, "stress": stress_launches,
-             "SMC": smc_launches, "GP predictive": run_gp_predictive(card, gp_idata)}
+             "SMC": smc_launches, "GP predictive": run_gp_predictive(card, gp_idata),
+             **run_init_family(card, idata)}
     total = {k: sum(p[k] for p in paths.values()) for k in launches}
     kernels = kernel_records(total, errs, times, leaf, chol_err, chol_times)
     print("launches: " + "; ".join(f"{name} {p}" for name, p in paths.items()))

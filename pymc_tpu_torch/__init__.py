@@ -13,7 +13,10 @@ and `var_names`, which keeps the chosen variables on the card until they
 are postprocessed. Tempered SMC (`sample_smc`) on the mixture models.
 The rest of the GP module (every covariance, TP, the sparse, Kronecker and
 Hilbert-space GPs, `conditional` and `predict`) and prior and posterior
-predictive sampling. The package
+predictive sampling. The init family of `sample` (every init of the JAX
+package, full and gradient-based mass), VI (`fit`, ADVI, FullRankADVI,
+SVGD, ASVGD and the approximations), `find_MAP`/`find_hessian` and
+`find_constrained_prior`. The package
 imports torch and never jax; kernels are built at first use, never at
 import. Entry points run on the card unless `device="cpu"` is asked for.
 
@@ -26,20 +29,35 @@ import. Entry points run on the card unless `device="cpu"` is asked for.
     idata = pm.sample(draws=300, tune=300, chains=64, mass_adapt="pooled")
 """
 
-from . import distributions, gp
+from . import distributions, gp, tuning, variational
 from .distributions import (
     Bernoulli, ChiSquared, Dirichlet, Gamma, HalfCauchy, HalfNormal, KroneckerNormal, Mixture,
     MvNormal, MvStudentT, Normal, NormalMixture,
 )
+from .func_utils import find_constrained_prior
 from .model import Deterministic, Model, Potential
 from .sampling.forward import sample_posterior_predictive, sample_prior_predictive
-from .sampling.mcmc import sample
+from .sampling.mcmc import init_nuts, sample
 from .smc.sampling import sample_smc
 from .stats.convergence import ess, rhat
+from .tuning import find_hessian, find_MAP
+from .variational import (
+    ADVI, ASVGD, KL, KSD, SVGD, Approximation, FullRankADVI, Group, ImplicitGradient, KLqp,
+    ObjectiveFunction, Operator, Stein, TestFunction, adadelta, adagrad, adagrad_window, adam,
+    adamax, apply_momentum, apply_nesterov_momentum, fit, momentum, nesterov_momentum,
+    norm_constraint, rmsprop, sample_approx, sgd, total_norm_constraint,
+)
+from .variational.approximations import Empirical, FullRank, MeanField
 
 __all__ = [
     "Model", "Normal", "HalfNormal", "HalfCauchy", "Gamma", "ChiSquared", "MvNormal",
     "MvStudentT", "KroneckerNormal", "Bernoulli", "Dirichlet", "Mixture", "NormalMixture",
     "Deterministic", "Potential", "distributions", "gp", "sample", "sample_smc",
-    "sample_prior_predictive", "sample_posterior_predictive", "rhat", "ess",
+    "sample_prior_predictive", "sample_posterior_predictive", "rhat", "ess", "init_nuts",
+    "tuning", "variational", "find_MAP", "find_hessian", "find_constrained_prior", "fit", "ADVI",
+    "ASVGD", "SVGD", "FullRankADVI", "KLqp", "ImplicitGradient", "KL", "KSD", "Operator",
+    "ObjectiveFunction", "TestFunction", "Stein", "Group", "Approximation", "sample_approx",
+    "MeanField", "FullRank", "Empirical", "sgd", "momentum", "nesterov_momentum", "adagrad",
+    "adagrad_window", "rmsprop", "adadelta", "adam", "adamax", "apply_momentum",
+    "apply_nesterov_momentum", "norm_constraint", "total_norm_constraint",
 ]

@@ -4,7 +4,8 @@ Gamma and ChiSquared.
 Counterpart of `pymc_tpu/distributions/continuous.py` (Normal :149,
 HalfNormal :250, HalfCauchy :799, Gamma :830, ChiSquared :945; reference
 pymc/distributions/continuous.py:445, :822, :2330, :2415, :2659).
-Densities are elementwise tensor expressions; an invalid parameter gives
+Densities (and the logcdf of Normal, HalfNormal and Gamma, which
+`find_constrained_prior` needs) are elementwise tensor expressions; an invalid parameter gives
 -inf and never raises, and a value outside the support gives -inf. Draws
 (`_sample`) follow the JAX package's: Normal and HalfNormal from standard
 normals, HalfCauchy as |beta tan(pi (u - 1/2))|, Gamma from
@@ -18,7 +19,7 @@ import math
 import torch
 
 from ..graph import apply
-from .dist_math import check_parameters, log_normal, logpow
+from .dist_math import check_parameters, gammainc, log_normal, logpow, safe_log
 from .distribution import Continuous, as_param, standard_normal, standard_uniform
 
 __all__ = ["Normal", "HalfNormal", "HalfCauchy", "Gamma", "ChiSquared"]
@@ -58,6 +59,9 @@ class Normal(Continuous):
     def _logp(self, value, mu, sigma):
         return check_parameters(log_normal(value, mu, sigma), sigma > 0)
 
+    def _logcdf(self, value, mu, sigma):
+        return check_parameters(torch.special.log_ndtr((value - mu) / sigma), sigma > 0)
+
     def _sample(self, generator, shape, mu, sigma):
         return mu + sigma * standard_normal(generator, shape, mu)
 
@@ -76,6 +80,12 @@ class HalfNormal(Continuous):
 
     def _logp(self, value, sigma):
         res = 0.5 * _LOG_2_OVER_PI - torch.log(sigma) - 0.5 * (value / sigma) ** 2
+        res = torch.where(value >= 0, res, -torch.inf)
+        return check_parameters(res, sigma > 0)
+
+    def _logcdf(self, value, sigma):
+        z = value / (sigma * math.sqrt(2.0))
+        res = torch.log(torch.special.erf(torch.clamp(z, min=0.0)))
         res = torch.where(value >= 0, res, -torch.inf)
         return check_parameters(res, sigma > 0)
 
@@ -140,6 +150,11 @@ class Gamma(Continuous):
             - beta * safe
             - torch.lgamma(alpha)
         )
+        res = torch.where(value >= 0, res, -torch.inf)
+        return check_parameters(res, alpha > 0, beta > 0)
+
+    def _logcdf(self, value, alpha, beta):
+        res = safe_log(gammainc(alpha, beta * torch.clamp(value, min=0.0)))
         res = torch.where(value >= 0, res, -torch.inf)
         return check_parameters(res, alpha > 0, beta > 0)
 

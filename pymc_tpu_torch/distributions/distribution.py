@@ -53,6 +53,8 @@ def as_param(x):
     an integer parameter like `sigma=5` must not stay an integer tensor)."""
     if isinstance(x, Node):
         return x
+    if isinstance(x, torch.Tensor) and x.is_floating_point():
+        return as_node(x.to(torch.float64))  # keeps its autograd history
     return as_node(np.asarray(x, dtype=np.float64))
 
 
@@ -151,6 +153,18 @@ class Distribution:
     def logp(self, value, env=None, memo=None):
         """Elementwise log-density of `value` over the batch shape."""
         return self._logp(value, *self.resolve_params(env, memo))
+
+    def logcdf(self, value, env=None, memo=None):
+        """Elementwise log of the cdf at `value`."""
+        params = self.resolve_params(env, memo)
+        value = torch.as_tensor(value, dtype=params[0].dtype if params else None)
+        return self._logcdf(value, *params)
+
+    def _logcdf(self, value, *params):
+        raise NotImplementedError(
+            f"logcdf of {type(self).__name__} is not ported yet (the ROADMAP's "
+            "distribution-breadth item)"
+        )
 
     def sample(self, generator, sample_shape=(), env=None, memo=None):
         """Draws of shape sample_shape + self.shape from `generator` (a

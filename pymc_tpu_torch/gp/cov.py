@@ -32,10 +32,14 @@ __all__ = [
 
 
 def _float(c, X):
-    """c as a tensor of X's float type on X's device."""
+    """c as a tensor of X's float type on X's device; a Python number is
+    filled in place, not copied from the host (a CUDA graph can capture a
+    fill, not a copy)."""
     dtype = X.dtype if X.is_floating_point() else torch.float64
     if isinstance(c, torch.Tensor):
         return c.to(dtype)
+    if np.ndim(c) == 0:
+        return torch.full((), float(c), dtype=dtype, device=X.device)
     return torch.as_tensor(c, dtype=dtype, device=X.device)
 
 
@@ -91,7 +95,11 @@ class Covariance:
         X = as_tensor(X)
         if X.ndim == 1:
             X = X[:, None]
-        return X[..., torch.as_tensor(self.active_dims, device=X.device)]
+        # the index, made once per device (no host copy in a later call)
+        index = self.__dict__.setdefault("_active_index", {})
+        if X.device not in index:
+            index[X.device] = torch.as_tensor(self.active_dims, device=X.device)
+        return X[..., index[X.device]]
 
     def _diag(self, X, *params):
         return torch.diagonal(self._full(X, None, *params))

@@ -67,7 +67,10 @@ class Constant(Mean):
     def __call__(self, X):
         def const(x, c):
             dtype, device = _float_like(x)
-            return torch.as_tensor(c, dtype=dtype, device=device).expand(_rows(x))
+            if not isinstance(c, torch.Tensor):
+                # a fill, not a copy from the host
+                return torch.full((_rows(x),), float(c), dtype=dtype, device=device)
+            return c.to(dtype=dtype, device=device).expand(_rows(x))
 
         return apply(const, X, self.c)
 

@@ -21,6 +21,7 @@ from ..blocking import RaveledInfo, unravel_vector
 from ..config import floatX, resolve_device
 from ..distributions.distribution import UNSET
 from ..distributions.transforms import ChainedTransform
+from ..ops.cuda_graph import GraphedFunction
 from ..graph import (
     ConstantNode,
     DeterministicNode,
@@ -197,10 +198,10 @@ class Model:
         device = resolve_device(device)
         return place_constants(self._roots(), device, dtype or floatX(device))
 
-    def logp_terms_fn(self, device=None, dtype=None):
+    def logp_terms_fn(self, device=None, dtype=None, jacobian=True):
         """fn(value_dict) -> {name: summed logp term}, free RVs (with their
-        jacobians) first, then observed RVs, then potentials — the
-        reference's order."""
+        jacobians unless jacobian=False) first, then observed RVs, then
+        potentials — the reference's order."""
         placed = self.placed_constants(device, dtype)
         free_RVs = list(self.free_RVs)
         observed_RVs = list(self.observed_RVs)
@@ -215,7 +216,7 @@ class Model:
             terms = {}
             for rv in free_RVs:
                 lp = rv.dist.logp(env[rv.name], env, memo).sum()
-                if rv.transform is not None:
+                if jacobian and rv.transform is not None:
                     lp = lp + rv.transform.log_jac_det(value_dict[rv.value_name], env).sum()
                 terms[rv.name] = lp
             for orv in observed_RVs:
@@ -227,12 +228,13 @@ class Model:
 
         return fn
 
-    def logp_fn(self, device=None, dtype=None, split=False):
-        """fn(value_dict) -> scalar joint logp, jacobians included; with
-        split=True fn returns (varlogp, datalogp): the free RVs' terms with
-        their jacobians, and the rest, for tempering (pymc_tpu
-        model/core.py:803-826)."""
-        terms_fn = self.logp_terms_fn(device, dtype)
+    def logp_fn(self, device=None, dtype=None, split=False, jacobian=True):
+        """fn(value_dict) -> scalar joint logp, jacobians included (with
+        jacobian=False the constrained-space density over the unconstrained
+        values, which find_MAP maximises); with split=True fn returns
+        (varlogp, datalogp): the free RVs' terms with their jacobians, and
+        the rest, for tempering (pymc_tpu model/core.py:803-826)."""
+        terms_fn = self.logp_terms_fn(device, dtype, jacobian=jacobian)
         free_names = {rv.name for rv in self.free_RVs}
 
         def total(terms):
@@ -260,6 +262,14 @@ class Model:
         """The flat layout of `vars` (default: every free RV)."""
         return RaveledInfo.from_rvs(self.free_RVs if vars is None else vars)
 
+    def constrain(self, value_dict):
+        """{value name: unconstrained value} -> {rv name: constrained value}."""
+        env = {}
+        for rv in self.free_RVs:
+            v = value_dict[rv.value_name]
+            env[rv.name] = rv.transform.backward(v, env) if rv.transform else v
+        return env
+
     def unconstrain(self, point):
         """{rv name: constrained value} -> {value name: unconstrained value}."""
         env = dict(point)
@@ -269,11 +279,16 @@ class Model:
             for rv in self.free_RVs
         }
 
-    def logp_dlogp_fn(self, device=None, dtype=None):
+    def logp_dlogp_fn(self, device=None, dtype=None, jacobian=True):
         """fn(q (C, D)) -> (logp (C,), grad (C, D)) over flat unconstrained
         points — the sampler-facing density (reference ValueGradFunction
-        core.py:142). A discrete free RV raises: the JAX package samples
-        it with compound step methods, which this port does not have yet."""
+        core.py:142); jacobian as in `logp_fn`. On the card a call replays
+        a CUDA graph of the same kernels from the third call of each input
+        shape on (ops/cuda_graph.py; `fn.fn` is the eager function): the
+        samplers', VI's and MAP's loops call it thousands of times at one
+        shape. A discrete free RV raises:
+        the JAX package samples it with compound step methods, which this
+        port does not have yet."""
         if self.discrete_value_vars:
             names = [rv.value_name for rv in self.discrete_value_vars]
             raise NotImplementedError(
@@ -282,7 +297,7 @@ class Model:
                 "which pymc_tpu_torch does not have yet."
             )
         info = self.raveled_info()
-        scalar_logp = self.logp_fn(device, dtype)
+        scalar_logp = self.logp_fn(device, dtype, jacobian=jacobian)
         value_and_grad = torch.func.vmap(
             torch.func.grad_and_value(lambda q: scalar_logp(unravel_vector(q, info)))
         )
@@ -291,7 +306,7 @@ class Model:
             grad, logp = value_and_grad(q)
             return logp, grad.contiguous()
 
-        return fn
+        return GraphedFunction(fn)
 
     def postprocess_fn(self, device=None, dtype=None):
         """fn(q (N, D)) -> {name: (N, *shape)}: constrained free RVs and the

@@ -26,7 +26,8 @@ __all__ = [
     "gp_hsgp_model", "gp_tp_model",
     "gp_approx_model", "gp_grid_data", "gp_kron_model", "GP_SAMPLE_KWARGS",
     "GP_SMOKE_KWARGS", "GP_LATENT_SAMPLE_KWARGS", "GP_SCALARS",
-    "RADON_SAMPLE_KWARGS",
+    "RADON_SAMPLE_KWARGS", "RADON_ADVI_SAMPLE_KWARGS", "RADON_FULL_SAMPLE_KWARGS",
+    "GP_MAP_SAMPLE_KWARGS",
     "stress_glm_model", "STRESS_HYPERS", "STRESS_SAMPLE_KWARGS",
     "smc_mixture_model", "SMC_SAMPLE_KWARGS", "SMC_SEEDS", "smc_chain_estimates",
     "mixture_model",
@@ -39,6 +40,16 @@ RADON_SAMPLE_KWARGS = dict(
     chains=64, tune=200, draws=128, random_seed=0, mass_adapt="pooled",
     step_adapt="pooled", target_accept=0.95,
 )
+
+# BASELINE config #2, "radon multilevel regression, NUTS + ADVI init":
+# RADON_SAMPLE_KWARGS (phase 5's depth, 200/128) with init="advi+adapt_diag"
+# and the JAX package's n_init of 10,000 ADVI steps, as chip_smoke.py phase
+# 10a runs it. Uncut: with the logp+grad replayed from a CUDA graph a
+# radon leapfrog costs ~0.5 ms on the H100, not ~8 (PERF.md §6)
+RADON_ADVI_SAMPLE_KWARGS = dict(RADON_SAMPLE_KWARGS, init="advi+adapt_diag", n_init=10_000)
+# phase 10b: the same model and depth with a full mass (init=
+# "jitter+adapt_full": the identity, then one pooled covariance window)
+RADON_FULL_SAMPLE_KWARGS = dict(RADON_SAMPLE_KWARGS, init="jitter+adapt_full")
 
 # case_gp_marginal's keyword arguments to `sample` at 64 chains
 GP_SAMPLE_KWARGS = dict(draws=300, tune=300, chains=64, random_seed=0, mass_adapt="pooled")
@@ -55,6 +66,11 @@ GP_SCALARS = ("ls", "eta", "sigma")
 # took 2,685 s of sampling on the H100, past chip_smoke.py's whole limit;
 # it runs in that script instead
 GP_LATENT_SAMPLE_KWARGS = dict(GP_SAMPLE_KWARGS, draws=100, tune=100)
+# phase 10c: config #4's marginal GP started at its MAP point with the
+# static full mass the Hessian there gives (init="map"); 100/100, cut from
+# the suite's 300/300: with the MAP's mass only the step size is tuned, and
+# 6,400 draws hold the means to the fixture
+GP_MAP_SAMPLE_KWARGS = dict(GP_SAMPLE_KWARGS, draws=100, tune=100, init="map")
 
 
 def gp_data(n=150):

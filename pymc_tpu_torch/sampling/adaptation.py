@@ -17,6 +17,7 @@ import numpy as np
 import torch
 
 from ..ops.leapfrog import leapfrog_final_kick, leapfrog_kick_drift
+from .full_mass import DenseMass
 
 __all__ = [
     "DualAveragingState",
@@ -27,6 +28,13 @@ __all__ = [
     "welford_init",
     "welford_update",
     "welford_variance",
+    "welford_update_batch",
+    "welford_covariance",
+    "ExpWeightedState",
+    "expw_init",
+    "expw_seed",
+    "expw_update",
+    "expw_inv_mass",
     "build_schedule",
     "find_reasonable_step_size",
 ]
@@ -88,12 +96,20 @@ def da_restart(state: DualAveragingState):
 
 
 class WelfordState(NamedTuple):
-    count: torch.Tensor  # (C,)
-    mean: torch.Tensor  # (C, D)
-    m2: torch.Tensor  # (C, D)
+    count: torch.Tensor  # (C,); full: ()
+    mean: torch.Tensor  # (C, D); full: (D,)
+    m2: torch.Tensor  # (C, D); full: (D, D)
 
 
-def welford_init(chains, dim, dtype=torch.float64, device=None):
+def welford_init(chains, dim, dtype=torch.float64, device=None, full=False):
+    """A zero Welford state: per chain (diagonal), or with full=True one
+    state pooled over every chain (`chains` is not used)."""
+    if full:
+        return WelfordState(
+            count=torch.zeros((), dtype=dtype, device=device),
+            mean=torch.zeros((dim,), dtype=dtype, device=device),
+            m2=torch.zeros((dim, dim), dtype=dtype, device=device),
+        )
     z = torch.zeros((chains, dim), dtype=dtype, device=device)
     return WelfordState(
         count=torch.zeros((chains,), dtype=dtype, device=device), mean=z, m2=z
@@ -116,6 +132,78 @@ def welford_variance(state: WelfordState):
     w = n / (n + 5.0)
     var = w * (state.m2 / (n - 1.0)) + 1e-3 * (1.0 - w)
     return torch.clamp(var, min=1e-12)
+
+
+def welford_update_batch(state: WelfordState, X):
+    """Chan's parallel combine of a (C, D) batch, one draw per chain, into
+    the pooled full state: one (D, C) x (C, D) product (reference
+    QuadPotentialFullAdapt quadpotential.py:748, pooled across chains)."""
+    C = X.shape[0]
+    mean_b = torch.mean(X, dim=0)
+    Xc = X - mean_b
+    m2_b = Xc.T @ Xc
+    n = state.count
+    tot = n + C
+    delta = mean_b - state.mean
+    mean = state.mean + delta * (C / tot)
+    m2 = state.m2 + m2_b + torch.outer(delta, delta) * (n * C / tot)
+    return WelfordState(count=tot, mean=mean, m2=m2)
+
+
+def welford_covariance(state: WelfordState, regularize=True):
+    """The pooled covariance estimate, shrunk towards 1e-3 I as
+    `welford_variance` shrinks the diagonal."""
+    n = torch.clamp(state.count, min=2.0)
+    cov = state.m2 / (n - 1.0)
+    if regularize:
+        w = n / (n + 5.0)
+        eye = torch.eye(cov.shape[-1], dtype=cov.dtype, device=cov.device)
+        cov = w * cov + 1e-3 * (1.0 - w) * eye
+    return cov
+
+
+class ExpWeightedState(NamedTuple):
+    """Exponentially weighted mean and variance of the draws and of their
+    gradients, the grad-based diagonal mass estimator of
+    init="jitter+adapt_diag_grad" (reference quadpotential.py:458-580,
+    QuadPotentialDiagAdaptExp with use_grads=True); (C, D) each."""
+
+    mean_q: torch.Tensor
+    var_q: torch.Tensor
+    mean_g: torch.Tensor
+    var_g: torch.Tensor
+
+
+def expw_init(shape, dtype=torch.float64, device=None):
+    z = torch.zeros(shape, dtype=dtype, device=device)
+    return ExpWeightedState(z, z, z, z)
+
+
+def expw_seed(q, g):
+    """Anchor the estimator at the first draw after the discard window
+    (reference quadpotential.py:545-558: init_mean=sample, init_var=0)."""
+    return ExpWeightedState(q, torch.zeros_like(q), g, torch.zeros_like(g))
+
+
+def expw_update(state: ExpWeightedState, q, g, alpha=0.02):
+    """One _ExpWeightedVariance.add_sample step for draws and gradients
+    (reference quadpotential.py:466-470)."""
+    dq = q - state.mean_q
+    mean_q = state.mean_q + alpha * dq
+    var_q = (1.0 - alpha) * (state.var_q + alpha * dq * dq)
+    dg = g - state.mean_g
+    mean_g = state.mean_g + alpha * dg
+    var_g = (1.0 - alpha) * (state.var_g + alpha * dg * dg)
+    return ExpWeightedState(mean_q, var_q, mean_g, var_g)
+
+
+def expw_inv_mass(state: ExpWeightedState):
+    """The diagonal inverse mass sqrt(var_q / var_grad) (reference
+    quadpotential.py:575-580 _update_from_variances)."""
+    var = torch.sqrt(
+        torch.clamp(state.var_q, min=1e-20) / torch.clamp(state.var_g, min=1e-20)
+    )
+    return torch.clamp(var, 1e-12, 1e12)
 
 
 def build_schedule(tune):
@@ -156,11 +244,18 @@ def find_reasonable_step_size(logp_grad_b, q, logp, grad, xi, inv_mass):
     """Hoffman-Gelman heuristic, per chain: double or halve eps until the
     one-step leapfrog acceptance probability crosses 0.5.
 
-    q, grad, xi, inv_mass: (C, D); logp: (C,). `xi` is the standard-normal
-    draw behind the momentum (injected, so tests can feed the JAX package's
-    draws). The search starts at eps = 1 and stops after 60 doublings or
-    halvings; each iteration costs one host sync (`.any()`).
+    q, grad, xi: (C, D); logp: (C,); inv_mass: (C, D) diagonal, or a
+    DenseMass, a full Sigma shared by the chains, whose search runs in the
+    whitened coordinates with a unit mass (full_mass.py). `xi` is the
+    standard-normal draw behind the momentum (injected, so tests can feed
+    the JAX package's draws). The search starts at eps = 1 and stops after
+    60 doublings or halvings; each iteration costs one host sync (`.any()`).
     """
+    if isinstance(inv_mass, DenseMass):
+        return find_reasonable_step_size(
+            inv_mass.whitened(logp_grad_b), inv_mass.to_x(q), logp,
+            inv_mass.grad_to_x(grad), xi, inv_mass.unit(q.shape[0]),
+        )
     p = xi / torch.sqrt(inv_mass)
     h0 = -logp + 0.5 * torch.sum(p * (inv_mass * p), dim=-1)
 

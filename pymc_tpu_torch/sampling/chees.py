@@ -14,7 +14,10 @@ that read is the draw's only host sync.
 
 Randomness is an input: `chees_step` takes the momentum normals `xi` and
 the acceptance uniforms `u`, so the tests can feed it the JAX package's
-draws (`chees.py:83,97,147` there). Only a diagonal mass is ported.
+draws (`chees.py:83,97,147` there). A full mass (a DenseMass) runs the
+leapfrogs in the whitened coordinates x = L^-1 q with a unit mass through
+the same kernels (full_mass.py); the ChEES criterion, which is not
+invariant under that map, is computed after mapping x and p back to q.
 """
 
 from __future__ import annotations
@@ -26,6 +29,7 @@ import numpy as np
 import torch
 
 from ..ops.leapfrog import leapfrog_final_kick, leapfrog_kick_drift
+from .full_mass import DenseMass
 
 __all__ = ["CheesState", "HostReads", "chees_init", "chees_step", "halton_sequence"]
 
@@ -93,20 +97,26 @@ def chees_step(
     """One jittered HMC draw for all chains and one ChEES update of T.
 
     logp_grad_b: (C, D) -> (logp (C,), grad (C, D)); step_size: (C,) per
-    chain; inv_mass: (C, D) diagonal; halton_u: () in (0, 1], this draw's
-    jitter, shared by all chains; xi: (C, D) standard normals, the momentum
+    chain; inv_mass: (C, D) diagonal, or a DenseMass; halton_u: () in (0,
+    1], this draw's jitter, shared by all chains; xi: (C, D) standard normals, the momentum
     before the mass; u: (C,) U(0, 1) for the acceptance; adapt_T: host bool;
     host_read: reads L to the host, as a HostReads does, counting it.
     Returns (CheesState, stats) with stats a dict of (C,) tensors:
     acceptance_rate, accepted, lp, energy, n_steps, trajectory_length,
     diverging.
     """
-    if inv_mass.shape != state.q.shape:
-        raise NotImplementedError(
-            "chees_step: only a diagonal (C, D) mass is ported; full mass waits "
-            "for the full-mass item of the ROADMAP"
-        )
     C, _ = state.q.shape
+    dense = isinstance(inv_mass, DenseMass)
+    if dense:
+        lg, q = inv_mass.whitened(logp_grad_b), inv_mass.to_x(state.q)
+        grad, im = inv_mass.grad_to_x(state.grad), inv_mass.unit(C)
+    elif inv_mass.shape != state.q.shape:
+        raise NotImplementedError(
+            "chees_step: inv_mass is neither a diagonal (C, D) mass nor a DenseMass; "
+            "a full Sigma is passed as DenseMass(Sigma)"
+        )
+    else:
+        lg, q, grad, im = logp_grad_b, state.q, state.grad, inv_mass
     eps = step_size
     T_jit = torch.exp(state.log_T) * halton_u
     mean_eps = torch.mean(eps)
@@ -116,23 +126,27 @@ def chees_step(
     steps = torch.clamp(torch.ceil(T_jit / torch.clamp(mean_eps, min=1e-10)), 1, max_leapfrogs)
     L = host_read(steps)  # the draw's one host sync
 
-    p0 = xi / torch.sqrt(inv_mass)
-    h0 = -state.logp + _kinetic(p0, inv_mass)
+    p0 = xi / torch.sqrt(im)
+    h0 = -state.logp + _kinetic(p0, im)
 
-    q, p, grad, logp = state.q, p0, state.grad, state.logp
+    p, logp = p0, state.logp
     for _ in range(L):
-        q_new, p_half = leapfrog_kick_drift(q, p, grad, inv_mass, eps)
-        logp_new, grad_new = logp_grad_b(q_new)
-        p_new, _ = leapfrog_final_kick(p_half, grad_new, inv_mass, eps)
+        q_new, p_half = leapfrog_kick_drift(q, p, grad, im, eps)
+        logp_new, grad_new = lg(q_new)
+        p_new, _ = leapfrog_final_kick(p_half, grad_new, im, eps)
         # a lane whose logp is not finite (diverged) freezes where it is
         ok = torch.isfinite(logp_new)
         q = torch.where(ok[:, None], q_new, q)
         p = torch.where(ok[:, None], p_new, p)
         grad = torch.where(ok[:, None], grad_new, grad)
         logp = torch.where(ok, logp_new, -torch.inf)
-    q1, p1, grad1, logp1 = q, p, grad, logp
-
-    h1 = -logp1 + _kinetic(p1, inv_mass)
+    h1 = -logp + _kinetic(p, im)
+    if dense:
+        q1, p1 = inv_mass.to_q(q), inv_mass.to_q_momentum(p)
+        grad1 = inv_mass.to_q_momentum(grad)
+    else:
+        q1, p1, grad1 = q, p, grad
+    logp1 = logp
     log_accept = torch.clamp(h0 - h1, max=0.0)
     log_accept = torch.where(torch.isfinite(log_accept), log_accept, -torch.inf)
     accept_prob = torch.exp(log_accept)

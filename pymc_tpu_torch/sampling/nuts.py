@@ -1,4 +1,4 @@
-"""Batched NUTS with an explicit chain axis and a diagonal mass.
+"""Batched NUTS with an explicit chain axis and a diagonal or full mass.
 
 Counterpart of `pymc_tpu/sampling/nuts.py::nuts_transition_batched`
 (:564-729) and `_build_subtree_b` (:451-561); reference semantics from
@@ -15,6 +15,10 @@ then `logp_grad_b(q')`, one uniform draw and one `nuts_leaf_step`, which
 does the final kick, the tree bookkeeping and the next kick-drift in one
 kernel launch on the card (ops/leapfrog.py).
 
+A full mass (a DenseMass) runs the same transition in the whitened
+coordinates x = L^-1 q with a unit mass (full_mass.py), so the leaf kernel
+carries it too; the draw is mapped back to q at the end.
+
 Randomness is injected through a draw source (`TorchDraws` on a
 `torch.Generator`), so the tests can replay the JAX package's key stream.
 """
@@ -26,6 +30,7 @@ from typing import NamedTuple
 import torch
 
 from ..ops.leapfrog import SubtreeState, _w, nuts_leaf_step
+from .full_mass import DenseMass
 
 __all__ = ["NutsStats", "SamplerState", "TorchDraws", "nuts_transition"]
 
@@ -112,9 +117,21 @@ def nuts_transition(
     """One NUTS draw for all chains.
 
     logp_grad_b: (C, D) -> (logp (C,), grad (C, D)); draws: a draw source
-    (see TorchDraws); q, grad, inv_mass: (C, D); logp, step_size: (C,).
-    Returns ((q, logp, grad), NutsStats) with every stat of shape (C,).
+    (see TorchDraws); q, grad: (C, D); inv_mass: (C, D) diagonal, or a
+    DenseMass; logp, step_size: (C,). Returns ((q, logp, grad), NutsStats)
+    with every stat of shape (C,).
     """
+    if isinstance(inv_mass, DenseMass):
+        x = inv_mass.to_x(q)
+        (x1, logp1, grad_x1), stats = nuts_transition(
+            inv_mass.whitened(logp_grad_b), draws, x, logp, inv_mass.grad_to_x(grad),
+            step_size, inv_mass.unit(q.shape[0]), max_treedepth=max_treedepth,
+        )
+        # a chain that kept its start keeps its q and grad exactly
+        stay = (x1 == x).all(dim=-1, keepdim=True)
+        q1 = torch.where(stay, q, inv_mass.to_q(x1))
+        grad1 = torch.where(stay, grad, inv_mass.to_q_momentum(grad_x1))
+        return (q1, logp1, grad1), stats
     C, D = q.shape
     dtype, device = q.dtype, q.device
     p0 = draws.momentum() / torch.sqrt(inv_mass)

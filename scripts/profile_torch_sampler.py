@@ -97,7 +97,9 @@ def leaf_loop(fn, q, gen, depth=6):
 def logp_grad_alone(label, model, chains, card):
     """Step 1; returns (fn, q, kernels per call)."""
     D = model.raveled_info().total_size
-    fn = model.logp_dlogp_fn(device="cuda")
+    # the eager function, its kernels launched one by one (the samplers
+    # replay them from a CUDA graph: ops/cuda_graph.py)
+    fn = model.logp_dlogp_fn(device="cuda").fn
     q = torch.as_tensor(
         np.random.default_rng(0).normal(0.0, 0.5, size=(chains, D)),
         device="cuda", dtype=torch.float32,
