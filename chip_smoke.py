@@ -103,10 +103,16 @@ Phases, in order; any failure ends the script with a non-zero exit:
                 conditional covariance), the
                 draws' mean and variance at each point within GP_PRED_Z
                 Monte Carlo standard errors of Marginal.predict's on the
-                same draws on the CPU in float64; its wall and peak memory.
-                The latent GP sampled with NUTS (config #4's named form) is
-                scripts/probe_torch_gp_latent.py's: its deep lock-step trees
-                take longer than this script's time limit allows
+                same draws on the CPU in float64; its wall and peak memory;
+                9c. pymc_tpu_torch.sample on the latent GP (config #4's
+                named form, benchmarks/suite.py::case_gp, n = 150, 153
+                free parameters) at 64 chains, pooled mass, tune 100, draws
+                100 (models.GP_LATENT_SAMPLE_KWARGS), float32 at its default
+                prior jitter: one Cholesky launch a logp+grad and one a
+                postprocess chunk, phase 5's launch identities, every draw
+                finite, R-hat < 1.05 on ls, eta and sigma and their means
+                within 5 combined MCSE of
+                tests/data/torch_gp_latent_reference.json
   10. inits   — the init family of `sample`:
                 10a. BASELINE config #2, the radon GLM with NUTS and
                 init="advi+adapt_diag" (10,000 ADVI steps) at phase 5's
@@ -127,11 +133,29 @@ Phases, in order; any failure ends the script with a non-zero exit:
                 the KL objective and its gradient (ADVI, FullRankADVI) and
                 SVGD's Stein update of 100 particles at the radon GLM's
                 width on the card against the CPU in float64, rtol 1e-4
+  11. dists   — the univariate distribution library, sampled with NUTS:
+                11a. the BEST model (benchmarks/suite.py::case_best:
+                StudentT with lam=, Uniform, Exponential; two interval,
+                one log and two real free parameters) at the suite's
+                accelerator setting, 512 chains, tune 1000, pooled mass,
+                seed 0, draws cut from 5000 to 2000
+                (models.BEST_SMOKE_KWARGS); 11b. the
+                hierarchical binomial (examples/hierarchical_binomial.py:
+                Beta, Binomial, Uniform, Exponential and pm.math.exp; 18
+                logodds, one interval and one log free parameter) at 64
+                chains, tune 1000, draws 1000 (models.BINOMIAL_SAMPLE_KWARGS);
+                each with phase 5's launch identities and no Cholesky,
+                every draw finite, max R-hat < 1.05, and the means of the
+                named scalars within 5 combined MCSE of
+                tests/data/torch_best_reference.json and
+                torch_binomial_reference.json (pymc_tpu on the CPU); prints
+                min-ESS/s, grad-evals/s, the walls and the leapfrogs a draw
 
 Phase 3 also checks and times the Cholesky at SMC's (4, 3) stack, at
 phase 9's shapes and at phase 10's (1, 175) and (1, 150), and its jvp under
 vmap at (3, 150, 150), the GP Hessian's, and phase 4 compares the two mixture models' logp/grad
-and SMC's tempered density on the card with the CPU. Each sampling or
+and SMC's tempered density on the card with the CPU, with phase 11's two
+models, whose logp+grad must be captured in a CUDA graph. Each sampling or
 predictive phase sets every kernel's launch count to 0 just before it runs
 and reads the counts just after. The line before the last is one JSON
 object with each kernel's launches (summed over the sampling and
@@ -161,17 +185,20 @@ REFERENCE = os.path.join(ROOT, "tests", "data", "torch_radon_reference.json")
 GP_REFERENCE = os.path.join(ROOT, "tests", "data", "torch_gp_marginal_reference.json")
 STRESS_REFERENCE = os.path.join(ROOT, "tests", "data", "torch_stress_reference.json")
 SMC_REFERENCE = os.path.join(ROOT, "tests", "data", "torch_smc_reference.json")
+GP_LATENT_REFERENCE = os.path.join(ROOT, "tests", "data", "torch_gp_latent_reference.json")
+BEST_REFERENCE = os.path.join(ROOT, "tests", "data", "torch_best_reference.json")
+BINOMIAL_REFERENCE = os.path.join(ROOT, "tests", "data", "torch_binomial_reference.json")
 # The default prior jitter of the latent, TP, Kron and sparse forms depends
 # on the float type (1e-6 or 1e-4 in float64, at least 1e-4 in float32), so
 # the float32 and float64 models differ by more than float32's rounding:
 # phase 9a builds them with this jitter on both sides
 GP_FORM_JITTER = 1e-2
-# phase 9a also holds the latent GP at its float32 default jitter (3e-5
-# eta^2, at least 1e-4) to the float64 model with that jitter. There K's
-# condition reaches ~5e6, so float32's Cholesky moves f = L v, and with it
-# the logp, far more than at GP_FORM_JITTER: LAPACK's float32 factor gives
-# 1.9e-3 and 4.9e-4 at these points, and a backward error of 0.11 jitters
-# over the lengthscales (tests/test_torch_gp_approx.py)
+# phase 9a also holds the latent GP at its float32 default jitter
+# (`gp.gp.F32_PRIOR_JITTER` eta^2, at least 1e-4) to the float64 model with
+# that jitter. There K is far worse conditioned, so float32's Cholesky moves
+# f = L v, and with it the logp, far more than at GP_FORM_JITTER; LAPACK's
+# float32 factor has a backward error of 0.03 jitters over the lengthscales
+# (0.11 at the earlier 3e-5; tests/test_torch_gp_approx.py)
 LATENT_LOGP_RTOL = 1e-2
 LATENT_GRAD_RTOL = 5e-3
 LATENT_BACKWARD_TOL = 0.5
@@ -842,8 +869,8 @@ def chol_backward_bound(C, n):
 
 def chol_backward_times(card, C, n):
     """A logp+grad's Cholesky, forward and backward, at (C, n) in float32:
-    the kernel with its backward rule against cholesky_ex with torch's.
-    Returns {name: device ms}."""
+    the kernel with its backward rule against its plain version and
+    cholesky_ex, each with torch's backward. Returns {name: device ms}."""
     from pymc_tpu_torch.ops import linalg as la
 
     A = spd_stack(C, n, torch.float32, seed=1).requires_grad_()
@@ -851,6 +878,7 @@ def chol_backward_times(card, C, n):
                     device="cuda")
     calls = {
         "kernel": lambda: torch.autograd.grad(la.cholesky_batched(A), A, G),
+        "plain": lambda: torch.autograd.grad(la.cholesky_plain(A), A, G),
         "library": lambda: torch.autograd.grad(torch.linalg.cholesky_ex(A)[0], A, G),
     }
     measured = {k: [] for k in calls}
@@ -859,7 +887,8 @@ def chol_backward_times(card, C, n):
     out = {k: min(m[0] for m in v) for k, v in measured.items()}
     b_ms, b_by = chol_backward_bound(C, n)
     print(f"({C}, {n}) float32 cholesky forward and backward: kernel {out['kernel']:.5f} ms, "
-          f"cholesky_ex {out['library']:.5f} ms, bound {b_ms:.7f} ms ({b_by})  [{card}]")
+          f"plain {out['plain']:.5f} ms, cholesky_ex {out['library']:.5f} ms, bound "
+          f"{b_ms:.7f} ms ({b_by})  [{card}]")
     return out
 
 
@@ -930,12 +959,14 @@ def check_logp_on_card(label, model, chains=64):
 
 
 def check_logp(card):
-    """Phase 4: the radon GLM's, the marginal GP's, the stress GLM's and the
-    two mixture models' logp/grad on the card, SMC's tempered density, and
-    the samplers' logp+grad replayed from a CUDA graph."""
+    """Phase 4: the radon GLM's, the marginal GP's, the stress GLM's, the
+    two mixture models' and phase 11's two models' logp/grad on the card,
+    SMC's tempered density, and the samplers' logp+grad replayed from a
+    CUDA graph."""
     import pymc_tpu_torch as pm
     from pymc_tpu_torch.models import (
-        gp_marginal_model, mixture_model, smc_mixture_model, stress_glm_model,
+        best_model, gp_marginal_model, hierarchical_binomial_model, mixture_model,
+        smc_mixture_model, stress_glm_model,
     )
 
     phase("4 logp/grad on the card")
@@ -945,6 +976,8 @@ def check_logp(card):
     check_logp_on_card(f"stress GLM ({C} chains)", stress_glm_model(), chains=C)
     check_logp_on_card("SMC mixture (config #5)", smc_mixture_model())
     check_logp_on_card("mixture (case_mixture)", mixture_model())
+    check_logp_on_card("BEST (case_best)", best_model())
+    check_logp_on_card("hierarchical binomial", hierarchical_binomial_model())
     check_smc_density()
     check_graphed_logp(card)
 
@@ -953,7 +986,8 @@ def check_graphed_logp(card):
     """The samplers' logp+grad replayed from a CUDA graph (ops/cuda_graph.py)
     against the eager call at the sampled models' (chains, D): outputs
     bitwise equal over five inputs, the same Cholesky launches; host ms a
-    call of both (30 calls, synchronised at the end)."""
+    call of both (30 calls, synchronised at the end). Phase 11's two models
+    must be captured (a logp that reads the host would run eagerly)."""
     import pymc_tpu_torch as pm
     from pymc_tpu_torch import models
     from pymc_tpu_torch.ops import linalg as la
@@ -963,7 +997,10 @@ def check_graphed_logp(card):
     cases = [("radon", radon, 64), ("radon, one point (VI, MAP)", radon, 1),
              ("GP marginal", models.gp_marginal_model(150), 64),
              ("latent GP", models.gp_latent_model(150), 64),
-             ("stress GLM", models.stress_glm_model(), C)]
+             ("stress GLM", models.stress_glm_model(), C),
+             ("BEST", models.best_model(), models.BEST_SAMPLE_KWARGS["chains"]),
+             ("hierarchical binomial", models.hierarchical_binomial_model(),
+              models.BINOMIAL_SAMPLE_KWARGS["chains"])]
     for label, model, chains in cases:
         D = model.raveled_info().total_size
         rng = np.random.default_rng(0)
@@ -984,11 +1021,15 @@ def check_graphed_logp(card):
             ms[name] = (time.perf_counter() - t0) / 30 * 1e3
         same = all(torch.equal(a, b) for o, r in zip(outs["graphed"], outs["eager"])
                    for a, b in zip(o, r))
+        captured = all(g.graph is not None for g in graphed.graphs.values())
         print(f"{label} ({chains}, {D}) logp+grad: graphed bitwise equal to eager {same}; "
-              f"Cholesky launches {launches['graphed']} / {launches['eager']}; host ms a call "
-              f"eager {ms['eager']:.3f}, graphed {ms['graphed']:.3f}  [{card}]")
+              f"captured {captured}; Cholesky launches {launches['graphed']} / "
+              f"{launches['eager']}; host ms a call eager {ms['eager']:.3f}, graphed "
+              f"{ms['graphed']:.3f}  [{card}]")
         if not (same and launches["graphed"] == launches["eager"]):
             raise AssertionError(f"{label}: the graphed logp+grad differs from the eager one")
+        if label in ("BEST", "hierarchical binomial") and not captured:
+            raise AssertionError(f"{label}: the logp+grad was not captured in a CUDA graph")
 
 
 def check_smc_density():
@@ -1439,6 +1480,57 @@ def check_latent_default_jitter(chains=64):
                              "with the same jitter")
 
 
+def run_gp_latent(card, config):
+    """Phase 9c: sample the latent GP (config #4's named form) at `config`
+    on the card and check it: one Cholesky launch a logp+grad and one a
+    postprocess chunk, phase 5's launch identities, every draw finite,
+    R-hat < 1.05 on ls, eta and sigma and their means within 5 combined MCSE
+    of GP_LATENT_REFERENCE. Prints the readings and a `posterior summary`
+    line before the checks. Returns {kernel: launches}."""
+    from pymc_tpu_torch.models import GP_SCALARS, gp_latent_model
+    from pymc_tpu_torch.sampling.mcmc import _POST_CHUNK
+    from pymc_tpu_torch.stats.convergence import mcse_mean, rhat
+
+    idata, launches = sample_counted(gp_latent_model(150), config)
+    post, stats, attrs = idata.posterior, idata.sample_stats, idata.posterior.attrs
+    n_leapfrog, n_calls = attrs["n_leapfrog"], attrs["n_logp_grad"]
+    sampling_summary("latent GP", idata, GP_SCALARS, card)
+    inner = attrs["sampling_time"] + attrs["tuning_time"]
+    print(f"latent GP: leapfrogs a draw {leapfrogs_per_draw(idata, config):.1f} (lock-step, "
+          f"tuning included; {inner / n_leapfrog * 1e3:.2f} ms each); logp+grad calls "
+          f"{n_calls}; step size {float(stats['step_size'].values[0, 0]):.5f}", flush=True)
+    with open(GP_LATENT_REFERENCE) as f:
+        ref = json.load(f)["params"]
+    summary = {}
+    for name in GP_SCALARS:
+        x = post[name].values.astype(np.float64)
+        se = float(np.hypot(mcse_mean(x), ref[name]["mcse"]))
+        summary[name] = {"mean": float(x.mean()), "mcse": float(mcse_mean(x)),
+                         "rhat": float(np.nanmax(rhat(x))),
+                         "z": (float(x.mean()) - ref[name]["mean"]) / se}
+    print(f"posterior summary {json.dumps(summary)}", flush=True)
+    # one logp+grad a Cholesky launch, and one more a postprocess chunk:
+    # the deterministic f = L v of every draw is computed on the card
+    chunks = math.ceil(config["chains"] * config["draws"] / _POST_CHUNK)
+    if not (launches["cholesky"] == n_calls + chunks and n_calls >= n_leapfrog > 0):
+        raise AssertionError(f"cholesky launches {launches['cholesky']} != logp+grad calls "
+                             f"{n_calls} + postprocess chunks {chunks}")
+    check_launch_identities("latent GP", attrs, launches)
+    for name in post.keys():
+        if not np.isfinite(post[name].values).all():
+            raise AssertionError(f"latent GP: non-finite draws in {name}")
+    # R-hat on the three scalars, as the probe has always held them (f and
+    # its 150 whitened coordinates mix at their own pace)
+    for name, v in summary.items():
+        print(f"latent GP {name}: mean {v['mean']:.5f} (reference {ref[name]['mean']:.5f}), "
+              f"{v['z']:+.2f} combined MCSE; R-hat {v['rhat']:.4f}")
+        if not abs(v["z"]) <= 5.0:
+            raise AssertionError(f"latent GP {name} mean is {v['z']:+.2f} MCSE off the reference")
+        if not v["rhat"] < 1.05:
+            raise AssertionError(f"latent GP {name} R-hat {v['rhat']:.4f} >= 1.05")
+    return launches
+
+
 def predictive_moments(gp, Xnew, post, chunk=1600, device="cpu", dtype=torch.float64):
     """Marginal.predict's (mean, variance) at Xnew with the noise, by
     default on the CPU in float64, at every draw of `post` (ls, eta,
@@ -1740,6 +1832,45 @@ def rng_params(name, shape, D):
     return rng.normal(loc, scale, size=shape)
 
 
+def run_distribution_model(card, label, build, config, names, reference):
+    """Sample `build()` at `config` on the card and check it: phase 5's
+    launch identities and no Cholesky, every draw finite, max R-hat < 1.05,
+    the means of `names` within 5 combined MCSE of the pymc_tpu fixture
+    `reference`; prints min-ESS/s, grad-evals/s, the walls and the
+    leapfrogs a draw. Returns {kernel: launches}."""
+    t0 = time.perf_counter()
+    idata, launches = sample_counted(build(), config)
+    wall = time.perf_counter() - t0
+    post = idata.posterior
+    check_launch_identities(label, post.attrs, launches)
+    if launches["cholesky"]:
+        raise AssertionError(f"{label}: {launches['cholesky']} Cholesky launches")
+    if post[names[0]].shape[:2] != (config["chains"], config["draws"]):
+        raise AssertionError(f"{label}: {names[0]} has shape {post[names[0]].shape}")
+    sampling_summary(label, idata, names, card)
+    check_means(label, post, names, reference)
+    inner = post.attrs["tuning_time"] + post.attrs["sampling_time"]
+    print(f"{label}: leapfrogs a draw {leapfrogs_per_draw(idata, config):.1f} (lock-step, "
+          f"tuning included); phase wall {wall:.1f} s, of which tuning and sampling "
+          f"{inner:.1f} s")
+    return launches
+
+
+def run_distribution_models(card):
+    """Phase 11: the univariate distribution library sampled on the card;
+    returns {path: {kernel: launches}}."""
+    from pymc_tpu_torch import models
+
+    phase("11a BEST (case_best): StudentT, Uniform, Exponential")
+    best = run_distribution_model(card, "BEST", models.best_model, models.BEST_SMOKE_KWARGS,
+                                  models.BEST_SCALARS, BEST_REFERENCE)
+    phase("11b hierarchical binomial: Beta, Binomial, Uniform, Exponential")
+    binomial = run_distribution_model(
+        card, "hierarchical binomial", models.hierarchical_binomial_model,
+        models.BINOMIAL_SAMPLE_KWARGS, models.BINOMIAL_SCALARS, BINOMIAL_REFERENCE)
+    return {"BEST": best, "hierarchical binomial": binomial}
+
+
 def run_init_family(card, radon_idata):
     """Phase 10: the init family; returns {path: {kernel: launches}}."""
     paths = {"radon ADVI init": run_radon_advi(card),
@@ -1808,9 +1939,14 @@ def main():
     stress_launches = run_stress(card)
     smc_launches = run_smc(card)
     check_gp_forms()
+    from pymc_tpu_torch.models import GP_LATENT_SAMPLE_KWARGS
+
+    phase("9c latent GP sampling (config #4's named form)")
+    latent_launches = run_gp_latent(card, GP_LATENT_SAMPLE_KWARGS)
     paths = {"radon": launches, "GP": gp_launches, "stress": stress_launches,
              "SMC": smc_launches, "GP predictive": run_gp_predictive(card, gp_idata),
-             **run_init_family(card, idata)}
+             "latent GP": latent_launches,
+             **run_init_family(card, idata), **run_distribution_models(card)}
     total = {k: sum(p[k] for p in paths.values()) for k in launches}
     kernels = kernel_records(total, errs, times, leaf, chol_err, chol_times)
     print("launches: " + "; ".join(f"{name} {p}" for name, p in paths.items()))

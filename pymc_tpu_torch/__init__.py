@@ -16,7 +16,10 @@ Hilbert-space GPs, `conditional` and `predict`) and prior and posterior
 predictive sampling. The init family of `sample` (every init of the JAX
 package, full and gradient-based mass), VI (`fit`, ADVI, FullRankADVI,
 SVGD, ASVGD and the approximations), `find_MAP`/`find_hessian` and
-`find_constrained_prior`. The package
+`find_constrained_prior`. The univariate distribution library (every
+class of the JAX package's continuous.py and discrete.py, the
+zero-inflated and hurdle mixtures), the log-odds, interval, log-expm1 and
+circular transforms, and `pm.math`. The package
 imports torch and never jax; kernels are built at first use, never at
 import. Entry points run on the card unless `device="cpu"` is asked for.
 
@@ -29,11 +32,9 @@ import. Entry points run on the card unless `device="cpu"` is asked for.
     idata = pm.sample(draws=300, tune=300, chains=64, mass_adapt="pooled")
 """
 
-from . import distributions, gp, tuning, variational
-from .distributions import (
-    Bernoulli, ChiSquared, Dirichlet, Gamma, HalfCauchy, HalfNormal, KroneckerNormal, Mixture,
-    MvNormal, MvStudentT, Normal, NormalMixture,
-)
+from . import distributions, gp, math, tuning, variational
+from .distributions import *  # noqa: F401,F403
+from .distributions import __all__ as _dist_all
 from .func_utils import find_constrained_prior
 from .model import Deterministic, Model, Potential
 from .sampling.forward import sample_posterior_predictive, sample_prior_predictive
@@ -50,9 +51,8 @@ from .variational import (
 from .variational.approximations import Empirical, FullRank, MeanField
 
 __all__ = [
-    "Model", "Normal", "HalfNormal", "HalfCauchy", "Gamma", "ChiSquared", "MvNormal",
-    "MvStudentT", "KroneckerNormal", "Bernoulli", "Dirichlet", "Mixture", "NormalMixture",
-    "Deterministic", "Potential", "distributions", "gp", "sample", "sample_smc",
+    *[n for n in _dist_all if n not in ("Distribution", "Continuous", "Discrete", "transforms")],
+    "Model", "Deterministic", "Potential", "distributions", "math", "gp", "sample", "sample_smc",
     "sample_prior_predictive", "sample_posterior_predictive", "rhat", "ess", "init_nuts",
     "tuning", "variational", "find_MAP", "find_hessian", "find_constrained_prior", "fit", "ADVI",
     "ASVGD", "SVGD", "FullRankADVI", "KLqp", "ImplicitGradient", "KL", "KSD", "Operator",

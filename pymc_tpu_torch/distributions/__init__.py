@@ -1,14 +1,17 @@
-"""Distributions of the PyTorch port."""
+"""Distributions of the PyTorch port (the JAX package's names)."""
 
 from . import transforms
-from .continuous import ChiSquared, Gamma, HalfCauchy, HalfNormal, Normal
-from .discrete import Bernoulli
+from .continuous import *  # noqa: F401,F403
+from .continuous import __all__ as _cont_all
+from .discrete import *  # noqa: F401,F403
+from .discrete import __all__ as _disc_all
 from .distribution import Continuous, Discrete, Distribution
-from .mixture import Mixture, NormalMixture
+from .mixture import *  # noqa: F401,F403
+from .mixture import __all__ as _mix_all
 from .multivariate import Dirichlet, KroneckerNormal, MvNormal, MvStudentT
 
 __all__ = [
-    "Distribution", "Continuous", "Discrete", "Bernoulli", "Normal", "HalfNormal", "HalfCauchy",
-    "Gamma", "ChiSquared", "MvNormal", "MvStudentT", "KroneckerNormal", "Dirichlet", "Mixture",
-    "NormalMixture", "transforms",
+    "Distribution", "Continuous", "Discrete", "transforms", *_cont_all, *_disc_all,
+    "MvNormal", "MvStudentT", "KroneckerNormal", "Dirichlet",
+    *[n for n in _mix_all if n != "MixtureTransformWarning"],
 ]

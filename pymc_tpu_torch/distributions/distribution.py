@@ -8,10 +8,12 @@ are resolved through the evaluation env, so a model's joint logp stays one
 function of tensors.
 
 Subclasses define `param_names`, `support`, `__dist_init__`, `_logp`,
-`_sample` and `_support_point`; a multivariate one also sets
-`param_event_ndims` and `event_ndim` and defines `_event_shape` (reference
-distribution.py:87-111). Draws take an explicit `torch.Generator` on the
-device of the parameters, and come in their float type.
+`_sample` and `_support_point`, and `_logcdf` where the JAX class has one;
+a multivariate one also sets `param_event_ndims` and `event_ndim` and
+defines `_event_shape` (reference distribution.py:87-111). A class with an
+"interval" support defines `_interval_bounds`, which its default transform
+reads. Draws take an explicit `torch.Generator` on the device of the
+parameters, and come in their float type. `icdf` is not ported yet.
 """
 
 from __future__ import annotations
@@ -60,6 +62,11 @@ def as_param(x):
 
 class Distribution:
     param_names: tuple = ()
+    # optional parametrisations handed to _logp/_logcdf as keyword
+    # arguments where set (the logit of a sigmoid-headed `p`, NegativeBinomial's
+    # own mu): the density then reads them in place of `p`, which is not
+    # evaluated (pymc_tpu/distributions/distribution.py aux_param_names)
+    aux_param_names: tuple = ()
     # per-parameter event ndim (default zeros): the trailing dims of each
     # parameter that are not batch dims
     param_event_ndims: tuple | None = None
@@ -80,20 +87,31 @@ class Distribution:
             )
         observed = kwargs.pop("observed", None)
         dims = kwargs.pop("dims", None)
-        # only meaningful on the named path: they go to register_rv
+        # only meaningful on the named path: they go to register_rv, or to
+        # the class's hook (e.g. the ordered classes' compute_p)
         transform = kwargs.pop("transform", UNSET)
         default_transform = kwargs.pop("default_transform", UNSET)
         initval = kwargs.pop("initval", None)
+        named = {k: kwargs.pop(k) for k in cls._named_only_kwargs if k in kwargs}
         model = Model.get_context()
         if observed is not None and kwargs.get("shape") is None:
             kwargs["shape"] = np.shape(observed)
         elif dims is not None and kwargs.get("shape") is None:
             kwargs["shape"] = model.shape_from_dims(dims)
         dist = cls.dist(*args, **kwargs)
-        return model.register_rv(
+        rv = model.register_rv(
             dist, name, observed=observed, dims=dims, transform=transform,
             default_transform=default_transform, initval=initval,
         )
+        cls._post_register(model, name, dist, rv, **named)
+        return rv
+
+    # keyword arguments of the named path only, handed to _post_register
+    _named_only_kwargs: tuple = ()
+
+    @classmethod
+    def _post_register(cls, model, name, dist, rv, **named):
+        """Called after a named random variable is registered."""
 
     @classmethod
     def dist(cls, *args, shape=None, **kwargs):
@@ -108,7 +126,7 @@ class Distribution:
     def _resolve_shapes(self, shape):
         """Set batch_shape, event_shape and shape from the parameters'
         shapes, or from a requested `shape` they broadcast to."""
-        pshapes = [tuple(p.shape) for p in self.param_values()]
+        pshapes = [() if p is None else tuple(p.shape) for p in self.param_values()]
         event_ndims = self.param_event_ndims or (0,) * len(pshapes)
         batch = tuple(np.broadcast_shapes(
             *[s[: len(s) - e] for s, e in zip(pshapes, event_ndims)]
@@ -141,29 +159,58 @@ class Distribution:
         """Every value the distribution reads: the graph walks these to find
         a random variable's parents and the constants to place on the
         device (a mixture adds its components')."""
-        return self.param_values()
+        return self.param_values() + list(self._aux().values())
 
-    def resolve_params(self, env=None, memo=None):
-        return tuple(evaluate(p, env, memo) for p in self.param_values())
+    def _aux(self):
+        """{name: node} of the auxiliary parametrisations that are set."""
+        return {n: getattr(self, n) for n in self.aux_param_names
+                if getattr(self, n, None) is not None}
+
+    def resolve_params(self, env=None, memo=None, skip=()):
+        """The parameters' values; None for a name in `skip` or a parameter
+        that is None."""
+        if memo is None:
+            memo = {}
+        return tuple(
+            None if (p is None or n in skip) else evaluate(p, env, memo)
+            for n, p in zip(self.param_names, self.param_values())
+        )
+
+    def _cast_value(self, value, params):
+        value = torch.as_tensor(value)
+        if not self.is_discrete and not value.is_floating_point():
+            floats = [p for p in params if p is not None and p.is_floating_point()]
+            value = value.to(floats[0].dtype if floats else torch.float64)
+        return value
 
     @property
     def dtype(self):
         return torch.float64
 
     def logp(self, value, env=None, memo=None):
-        """Elementwise log-density of `value` over the batch shape."""
-        return self._logp(value, *self.resolve_params(env, memo))
+        """Elementwise log-density of `value` over the batch shape. A set
+        auxiliary parametrisation stands in for `p` there, which is left
+        unevaluated (its sigmoid would be computed for nothing)."""
+        memo = {} if memo is None else memo
+        aux = {n: evaluate(v, env, memo) for n, v in self._aux().items()}
+        params = self.resolve_params(env, memo, skip=("p",) if aux else ())
+        return self._logp(self._cast_value(value, params), *params, **aux)
 
     def logcdf(self, value, env=None, memo=None):
         """Elementwise log of the cdf at `value`."""
+        memo = {} if memo is None else memo
+        aux = {n: evaluate(v, env, memo) for n, v in self._aux().items()}
         params = self.resolve_params(env, memo)
-        value = torch.as_tensor(value, dtype=params[0].dtype if params else None)
-        return self._logcdf(value, *params)
+        return self._logcdf(self._cast_value(value, params), *params, **aux)
 
-    def _logcdf(self, value, *params):
+    def _logcdf(self, value, *params, **aux):
+        raise NotImplementedError(f"logcdf not implemented for {type(self).__name__}")
+
+    def icdf(self, q, env=None, memo=None):
+        """The quantile function: not ported yet (ROADMAP.md §1, item 7)."""
         raise NotImplementedError(
-            f"logcdf of {type(self).__name__} is not ported yet (the ROADMAP's "
-            "distribution-breadth item)"
+            f"icdf of {type(self).__name__} is not ported yet (ROADMAP.md §1, item 7: "
+            "_icdf and icdf_bisection)"
         )
 
     def sample(self, generator, sample_shape=(), env=None, memo=None):
@@ -182,21 +229,34 @@ class Distribution:
 
     def support_point(self, env=None, memo=None):
         """Finite, in-support initial value (reference support_point:679)."""
-        pt = self._support_point(*self.resolve_params(env, memo))
-        return torch.broadcast_to(torch.as_tensor(pt), self.shape)
+        pt = torch.as_tensor(self._support_point(*self.resolve_params(env, memo)))
+        if self.is_discrete:
+            pt = pt.to(intX())
+        return torch.broadcast_to(pt, self.shape)
 
     def default_transform(self):
-        """Default value transform from the support declaration
-        (reference pymc/distributions/transforms.py:55)."""
-        if self.support == "positive":
-            return tr.log
-        if self.support == "real":
+        """Default value transform from the support declaration (reference
+        pymc/distributions/transforms.py:55; pymc_tpu distribution.py:445-466)."""
+        if self.is_discrete:
             return None
-        if self.support == "simplex":
+        s = self.support
+        if s == "positive":
+            return tr.log
+        if s == "unit_interval":
+            return tr.logodds
+        if s == "interval":
+            return tr.IntervalTransform(*self._interval_bounds())
+        if s == "simplex":
             return tr.simplex
-        raise NotImplementedError(
-            f"no default transform for support {self.support!r} in this port"
-        )
+        if s == "circular":
+            return tr.circular
+        if s == "ordered":
+            return tr.ordered
+        return None
+
+    def _interval_bounds(self):
+        """(lower, upper) of an "interval" support, either None where open."""
+        raise NotImplementedError(f"{type(self).__name__} has no interval bounds")
 
     def __repr__(self):
         return f"<{type(self).__name__} shape={self.shape}>"

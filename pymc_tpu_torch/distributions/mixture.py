@@ -1,15 +1,16 @@
-"""Mixture distributions: Mixture and NormalMixture.
+"""Mixture distributions: Mixture, NormalMixture, and the zero-inflated
+and hurdle classes.
 
 Counterpart of `pymc_tpu/distributions/mixture.py` (Mixture :71-347,
-NormalMixture :349-358; reference pymc/distributions/mixture.py:356, :497).
-A mixture is a combinator: its logp is a logsumexp over the components'
-logps, its draw a categorical pick among the components' draws. The
-components are `.dist` objects, given as a list (one per component) or as
-one distribution whose rightmost batch axis indexes the components.
-`Mixture.inputs` lists the components' parameters besides `w`, so the
-graph finds the random variables the components read and the constants to
-place on the device. The zero-inflated and hurdle classes, and logcdf, are
-not ported.
+NormalMixture :349-358, the zero-inflated classes :360-457, the hurdle
+classes :460-631; reference pymc/distributions/mixture.py:356, :497,
+:577-1037). A mixture is a combinator: its logp is a logsumexp over the
+components' logps, its draw a categorical pick among the components'
+draws. The components are `.dist` objects, given as a list (one per
+component) or as one distribution whose rightmost batch axis indexes the
+components. `inputs` lists the components' parameters besides the
+weights, so the graph finds the random variables the components read and
+the constants to place on the device. `Mixture.logcdf` is not ported.
 """
 
 from __future__ import annotations
@@ -20,16 +21,38 @@ import numpy as np
 import torch
 
 from ..config import intX
-from ..graph import evaluate
-from .continuous import Normal
-from .dist_math import check_parameters
-from .distribution import Distribution, as_param, standard_uniform
+from ..graph import ConstantNode, DeterministicNode, Node, evaluate
+from .continuous import Gamma, LogNormal, Normal
+from .discrete import Binomial, NegativeBinomial, Poisson
+from .dist_math import check_parameters, log1mexp
+from .distribution import Continuous, Discrete, Distribution, as_param, standard_uniform
 
-__all__ = ["Mixture", "NormalMixture", "MixtureTransformWarning"]
+__all__ = [
+    "Mixture", "NormalMixture", "MixtureTransformWarning", "ZeroInflatedPoisson",
+    "ZeroInflatedBinomial", "ZeroInflatedNegativeBinomial", "HurdlePoisson",
+    "HurdleNegativeBinomial", "HurdleGamma", "HurdleLogNormal",
+]
 
 
 class MixtureTransformWarning(UserWarning):
     """Reference mixture.py:288."""
+
+
+def _same_expr(a, b):
+    """Structural equality of two bound expressions (the reference's
+    equal_computations check in mixture_default_transform; pymc_tpu
+    mixture.py:46): the same leaf, equal constants, or the same function of
+    equal arguments."""
+    if a is b:
+        return True
+    if isinstance(a, DeterministicNode) and isinstance(b, DeterministicNode):
+        return (a.fn is b.fn and a.kwargs == b.kwargs and len(a.args) == len(b.args)
+                and all(_same_expr(x, y) for x, y in zip(a.args, b.args)))
+    if isinstance(a, ConstantNode) and isinstance(b, ConstantNode):
+        return bool(np.array_equal(a.value.numpy(), b.value.numpy()))
+    if isinstance(a, Node) or isinstance(b, Node):
+        return False
+    return bool(np.array_equal(np.asarray(a), np.asarray(b)))
 
 
 class Mixture(Distribution):
@@ -103,10 +126,18 @@ class Mixture(Distribution):
 
     def default_transform(self):
         """The components' shared transform, or None with a
-        MixtureTransformWarning where their supports differ (reference
+        MixtureTransformWarning where their supports differ, or where
+        interval components' bounds are not the same expressions
+        ([Uniform(0, 1), Uniform(0, 2)] gets none; reference
         mixture.py:292-345)."""
         comps = self._components()
-        if len({c.support for c in comps}) != 1:
+        sups = {c.support for c in comps}
+        same = len(sups) == 1
+        if same and sups.pop() == "interval" and len(comps) > 1:
+            b0 = comps[0]._interval_bounds()
+            same = all(_same_expr(b0[0], b[0]) and _same_expr(b0[1], b[1])
+                       for b in (c._interval_bounds() for c in comps[1:]))
+        if not same:
             warnings.warn(
                 "No safe default transform found for Mixture distribution. This "
                 "can happen when components have different supports or default "
@@ -233,3 +264,220 @@ def _normal_mixture_dist(w, mu, sigma=None, tau=None, **kwargs):
 
 
 NormalMixture.dist = _normal_mixture_dist
+
+
+class _ZeroInflated(Discrete):
+    """A point mass at 0 with weight 1 - psi and the base distribution with
+    weight psi (psi is the probability of the base process)."""
+
+    param_names = ("psi",)
+    base_cls = None
+
+    def __dist_init__(self, psi, **base_params):
+        self.psi = as_param(psi)
+        self.base = self.base_cls.dist(**base_params)
+
+    def inputs(self):
+        return [self.psi] + self.base.inputs()
+
+    def _resolve_shapes(self, shape):
+        batch = tuple(np.broadcast_shapes(tuple(self.psi.shape), self.base.shape))
+        self.batch_shape = tuple(shape) if shape is not None else batch
+        self.event_shape = ()
+        self.shape = self.batch_shape
+
+    def logp(self, value, env=None, memo=None):
+        if memo is None:
+            memo = {}
+        psi = evaluate(self.psi, env, memo)
+        base_lp = self.base.logp(value, env, memo)
+        log_psi = torch.log(torch.clamp(psi, 1e-30, 1.0))
+        res = torch.where(value == 0, torch.logaddexp(torch.log1p(-psi), log_psi + base_lp),
+                          log_psi + base_lp)
+        res = torch.where(value >= 0, res, -torch.inf)
+        return check_parameters(res, psi >= 0, psi <= 1)
+
+    def logcdf(self, value, env=None, memo=None):
+        if memo is None:
+            memo = {}
+        psi = evaluate(self.psi, env, memo)
+        base = self.base.logcdf(value, env, memo)
+        res = torch.logaddexp(torch.log1p(-psi), torch.log(torch.clamp(psi, 1e-30, 1.0)) + base)
+        res = torch.where(value < 0, -torch.inf, torch.clamp(res, max=0.0))
+        return check_parameters(res, psi >= 0, psi <= 1)
+
+    def _base_draw(self, generator, full, env, memo):
+        # the base drawn at the full batch shape: a draw at the sample shape
+        # alone, broadcast, would give every element one candidate
+        extra = full[: len(full) - len(self.base.shape)]
+        return torch.broadcast_to(self.base.sample(generator, extra, env, memo), full)
+
+    def sample(self, generator, sample_shape=(), env=None, memo=None):
+        if isinstance(sample_shape, int):
+            sample_shape = (sample_shape,)
+        if memo is None:
+            memo = {}
+        psi = evaluate(self.psi, env, memo)
+        full = tuple(sample_shape) + self.shape
+        nonzero = standard_uniform(generator, full, psi) < psi
+        draw = self._base_draw(generator, full, env, memo)
+        return torch.where(nonzero, draw, 0).to(intX())
+
+    def support_point(self, env=None, memo=None):
+        if memo is None:
+            memo = {}
+        psi = evaluate(self.psi, env, memo)
+        pt = torch.round(psi * self.base.support_point(env, memo)).to(intX())
+        return torch.broadcast_to(pt, self.shape)
+
+
+class ZeroInflatedPoisson(_ZeroInflated):
+    """Reference mixture.py:577."""
+
+    base_cls = Poisson
+
+    def __dist_init__(self, psi, mu):
+        super().__dist_init__(psi, mu=mu)
+
+
+class ZeroInflatedBinomial(_ZeroInflated):
+    """Reference mixture.py:641."""
+
+    base_cls = Binomial
+
+    def __dist_init__(self, psi, n, p):
+        super().__dist_init__(psi, n=n, p=p)
+
+
+class ZeroInflatedNegativeBinomial(_ZeroInflated):
+    """Reference mixture.py:705."""
+
+    base_cls = NegativeBinomial
+
+    def __dist_init__(self, psi, mu=None, alpha=None, p=None, n=None):
+        super().__dist_init__(psi, mu=mu, alpha=alpha, p=p, n=n)
+
+
+class _HurdleDiscrete(_ZeroInflated):
+    """P(0) = 1 - psi; the positive values follow the base truncated at
+    zero (reference mixture.py:790-871)."""
+
+    def logp(self, value, env=None, memo=None):
+        if memo is None:
+            memo = {}
+        psi = evaluate(self.psi, env, memo)
+        base_lp = self.base.logp(value, env, memo)
+        log_trunc = log1mexp(torch.clamp(self.base.logp(torch.zeros_like(value), env, memo),
+                                         max=-1e-15))
+        res = torch.where(value == 0, torch.log1p(-psi),
+                          torch.log(torch.clamp(psi, 1e-30, 1.0)) + base_lp - log_trunc)
+        res = torch.where(value >= 0, res, -torch.inf)
+        return check_parameters(res, psi >= 0, psi <= 1)
+
+    def logcdf(self, value, env=None, memo=None):
+        raise NotImplementedError(f"logcdf not implemented for {type(self).__name__}")
+
+    def sample(self, generator, sample_shape=(), env=None, memo=None):
+        # the zero-truncated base by 32 masked rounds of redrawing
+        if isinstance(sample_shape, int):
+            sample_shape = (sample_shape,)
+        if memo is None:
+            memo = {}
+        psi = evaluate(self.psi, env, memo)
+        full = tuple(sample_shape) + self.shape
+        nonzero = standard_uniform(generator, full, psi) < psi
+        draw = torch.zeros(full, dtype=intX(), device=psi.device)
+        got = torch.zeros(full, dtype=torch.bool, device=psi.device)
+        for _ in range(32):
+            cand = self._base_draw(generator, full, env, memo).to(intX())
+            draw = torch.where(~got & (cand > 0), cand, draw)
+            got = got | (cand > 0)
+        draw = torch.where(got, draw, 1)  # all 32 rounds at 0: vanishingly rare
+        return torch.where(nonzero, draw, 0).to(intX())
+
+    def support_point(self, env=None, memo=None):
+        if memo is None:
+            memo = {}
+        psi = evaluate(self.psi, env, memo)
+        base_pt = torch.clamp(self.base.support_point(env, memo), min=1)
+        return torch.broadcast_to(torch.round(psi * base_pt).to(intX()), self.shape)
+
+
+class _HurdleContinuous(Continuous):
+    """A point mass at 0 with weight 1 - psi and the positive base with
+    weight psi (reference HurdleGamma :981, HurdleLogNormal :1037). A
+    mixed discrete-continuous value has no transform: observed only."""
+
+    param_names = ("psi",)
+    support = "positive"
+    base_cls = None
+    __dist_init__ = _ZeroInflated.__dist_init__
+    inputs = _ZeroInflated.inputs
+    _resolve_shapes = _ZeroInflated._resolve_shapes
+    _base_draw = _ZeroInflated._base_draw
+
+    def default_transform(self):
+        return None
+
+    def logp(self, value, env=None, memo=None):
+        if memo is None:
+            memo = {}
+        psi = evaluate(self.psi, env, memo)
+        base_lp = self.base.logp(value, env, memo)
+        res = torch.where(value == 0, torch.log1p(-psi),
+                          torch.log(torch.clamp(psi, 1e-30, 1.0)) + base_lp)
+        res = torch.where(value >= 0, res, -torch.inf)
+        return check_parameters(res, psi >= 0, psi <= 1)
+
+    def sample(self, generator, sample_shape=(), env=None, memo=None):
+        if isinstance(sample_shape, int):
+            sample_shape = (sample_shape,)
+        if memo is None:
+            memo = {}
+        psi = evaluate(self.psi, env, memo)
+        full = tuple(sample_shape) + self.shape
+        nonzero = standard_uniform(generator, full, psi) < psi
+        draw = self._base_draw(generator, full, env, memo)
+        return torch.where(nonzero, draw, 0.0)
+
+    def support_point(self, env=None, memo=None):
+        if memo is None:
+            memo = {}
+        psi = evaluate(self.psi, env, memo)
+        return torch.broadcast_to(psi * self.base.support_point(env, memo), self.shape)
+
+
+class HurdlePoisson(_HurdleDiscrete):
+    """Reference mixture.py:873."""
+
+    base_cls = Poisson
+
+    def __dist_init__(self, psi, mu):
+        super().__dist_init__(psi, mu=mu)
+
+
+class HurdleNegativeBinomial(_HurdleDiscrete):
+    """Reference mixture.py:925."""
+
+    base_cls = NegativeBinomial
+
+    def __dist_init__(self, psi, mu=None, alpha=None, p=None, n=None):
+        super().__dist_init__(psi, mu=mu, alpha=alpha, p=p, n=n)
+
+
+class HurdleGamma(_HurdleContinuous):
+    """Reference mixture.py:981."""
+
+    base_cls = Gamma
+
+    def __dist_init__(self, psi, alpha=None, beta=None, mu=None, sigma=None):
+        _ZeroInflated.__dist_init__(self, psi, alpha=alpha, beta=beta, mu=mu, sigma=sigma)
+
+
+class HurdleLogNormal(_HurdleContinuous):
+    """Reference mixture.py:1037."""
+
+    base_cls = LogNormal
+
+    def __dist_init__(self, psi, mu=0.0, sigma=None, tau=None):
+        _ZeroInflated.__dist_init__(self, psi, mu=mu, sigma=sigma, tau=tau)

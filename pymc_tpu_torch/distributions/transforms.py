@@ -1,24 +1,30 @@
 """Value-space transforms (bijectors).
 
-Counterpart of `pymc_tpu/distributions/transforms.py`, cut to the log,
-simplex (stick-breaking), ordered and chained transforms. Same convention as
-the reference: `forward` maps constrained -> unconstrained, `backward` maps
-unconstrained -> constrained, and `log_jac_det(v)` is
-log|det d backward(v) / dv| at the unconstrained value `v`. Every method
-takes the evaluation env as an optional last argument, which a chained
-transform passes through to its parts (the JAX package's parametrised
-transforms read their bounds from it; none of the ported ones does).
+Counterpart of `pymc_tpu/distributions/transforms.py`: the log, log-odds,
+interval, log-expm1 (softplus), circular, simplex (stick-breaking), ordered
+and chained transforms. Same convention as the reference: `forward` maps
+constrained -> unconstrained, `backward` maps unconstrained -> constrained,
+and `log_jac_det(v)` is log|det d backward(v) / dv| at the unconstrained
+value `v`. Every method takes the evaluation env and memo as optional last
+arguments, which a chained transform passes through to its parts: the
+interval transform's bounds are graph nodes, evaluated there (the memo
+holds the constants placed on the device). The sum-to-1, zero-sum and
+Cholesky transforms are not ported yet.
 """
 
 from __future__ import annotations
 
+import math
+
 import torch
 
+from ..graph import evaluate
 from .dist_math import softplus
 
 __all__ = [
-    "Transform", "LogTransform", "SimplexTransform", "OrderedTransform", "ChainedTransform",
-    "log", "simplex", "ordered",
+    "Transform", "LogTransform", "LogOddsTransform", "IntervalTransform", "LogExpM1Transform",
+    "CircularTransform", "SimplexTransform", "OrderedTransform", "ChainedTransform", "Chain",
+    "Interval", "log", "logodds", "log_exp_m1", "circular", "simplex", "ordered",
 ]
 
 
@@ -29,13 +35,13 @@ class Transform:
     #: distribution's event_ndim
     event_ndim: int = 0
 
-    def forward(self, x, env=None):
+    def forward(self, x, env=None, memo=None):
         raise NotImplementedError
 
-    def backward(self, v, env=None):
+    def backward(self, v, env=None, memo=None):
         raise NotImplementedError
 
-    def log_jac_det(self, v, env=None):
+    def log_jac_det(self, v, env=None, memo=None):
         raise NotImplementedError
 
     def value_shape(self, shape):
@@ -52,14 +58,105 @@ class Transform:
 class LogTransform(Transform):
     name = "log"
 
-    def forward(self, x, env=None):
+    def forward(self, x, env=None, memo=None):
         return torch.log(x)
 
-    def backward(self, v, env=None):
+    def backward(self, v, env=None, memo=None):
         return torch.exp(v)
 
-    def log_jac_det(self, v, env=None):
+    def log_jac_det(self, v, env=None, memo=None):
         return v
+
+
+class LogOddsTransform(Transform):
+    """(0, 1) -> R, x = sigmoid(v)."""
+
+    name = "logodds"
+
+    def forward(self, x, env=None, memo=None):
+        return torch.log(x) - torch.log1p(-x)
+
+    def backward(self, v, env=None, memo=None):
+        return torch.sigmoid(v)
+
+    def log_jac_det(self, v, env=None, memo=None):
+        return -softplus(-v) - softplus(v)
+
+
+class IntervalTransform(Transform):
+    """(lower, upper) -> R; either bound may be None (half-open). A bound
+    is a number or a graph node (pymc_tpu transforms.py:108): a
+    distribution's default transform takes its parameters' nodes."""
+
+    name = "interval"
+
+    def __init__(self, lower=None, upper=None):
+        if lower is None and upper is None:
+            raise ValueError("Lower and upper interval bounds cannot both be None")
+        self.lower = lower
+        self.upper = upper
+
+    def _bounds(self, env, memo):
+        lo = None if self.lower is None else evaluate(self.lower, env, memo)
+        hi = None if self.upper is None else evaluate(self.upper, env, memo)
+        return lo, hi
+
+    def forward(self, x, env=None, memo=None):
+        lo, hi = self._bounds(env, memo)
+        if lo is not None and hi is not None:
+            return torch.log(x - lo) - torch.log(hi - x)
+        if lo is not None:
+            return torch.log(x - lo)
+        return torch.log(hi - x)
+
+    def backward(self, v, env=None, memo=None):
+        lo, hi = self._bounds(env, memo)
+        if lo is not None and hi is not None:
+            # the convex combination rounds to the bound itself when the
+            # sigmoid saturates, where lo + (hi - lo) s would overshoot it
+            s = torch.sigmoid(v)
+            return s * hi + (1.0 - s) * lo
+        if lo is not None:
+            return lo + torch.exp(v)
+        return hi - torch.exp(v)
+
+    def log_jac_det(self, v, env=None, memo=None):
+        lo, hi = self._bounds(env, memo)
+        if lo is not None and hi is not None:
+            width = hi - lo
+            log_width = torch.log(width) if isinstance(width, torch.Tensor) else math.log(width)
+            return log_width - softplus(-v) - softplus(v)
+        return v
+
+
+class LogExpM1Transform(Transform):
+    """(0, inf) -> R, x = softplus(v)."""
+
+    name = "log_exp_m1"
+
+    def forward(self, x, env=None, memo=None):
+        return x + torch.log1p(-torch.exp(-x))
+
+    def backward(self, v, env=None, memo=None):
+        return softplus(v)
+
+    def log_jac_det(self, v, env=None, memo=None):
+        return -softplus(-v)
+
+
+class CircularTransform(Transform):
+    """An angle wrapped to (-pi, pi] both ways, with a zero log-Jacobian."""
+
+    name = "circular"
+
+    def forward(self, x, env=None, memo=None):
+        return torch.atan2(torch.sin(x), torch.cos(x))
+
+    def backward(self, v, env=None, memo=None):
+        return torch.atan2(torch.sin(v), torch.cos(v))
+
+    def log_jac_det(self, v, env=None, memo=None):
+        return torch.zeros_like(v)
 
 
 def _stick_offsets(v):
@@ -77,20 +174,20 @@ class SimplexTransform(Transform):
     name = "simplex"
     event_ndim = 1
 
-    def forward(self, x, env=None):
+    def forward(self, x, env=None, memo=None):
         x0 = x[..., :-1]
         rem = 1.0 - torch.cumsum(x0, dim=-1)
         rem = torch.cat([torch.ones_like(x[..., :1]), rem[..., :-1]], dim=-1)
         z = x0 / rem
         return torch.log(z) - torch.log1p(-z) + _stick_offsets(x0)
 
-    def backward(self, v, env=None):
+    def backward(self, v, env=None, memo=None):
         z = torch.sigmoid(v - _stick_offsets(v))
         zl = torch.cat([z, torch.ones_like(v[..., :1])], dim=-1)
         lower = torch.cat([torch.ones_like(v[..., :1]), torch.cumprod(1.0 - z, dim=-1)], dim=-1)
         return zl * lower
 
-    def log_jac_det(self, v, env=None):
+    def log_jac_det(self, v, env=None, memo=None):
         adj = v - _stick_offsets(v)
         z = torch.sigmoid(adj)
         one_minus = torch.cumprod(1.0 - z, dim=-1)
@@ -117,20 +214,20 @@ class OrderedTransform(Transform):
         self.positive = positive
         self.ascending = ascending
 
-    def forward(self, x, env=None):
+    def forward(self, x, env=None, memo=None):
         if not self.ascending:
             x = torch.flip(x, dims=(-1,))
         y0 = torch.log(x[..., :1]) if self.positive else x[..., :1]
         return torch.cat([y0, torch.log(torch.diff(x, dim=-1))], dim=-1)
 
-    def backward(self, v, env=None):
+    def backward(self, v, env=None, memo=None):
         x0 = torch.exp(v[..., :1]) if self.positive else v[..., :1]
         x = torch.cumsum(torch.cat([x0, torch.exp(v[..., 1:])], dim=-1), dim=-1)
         if not self.ascending:
             x = torch.flip(x, dims=(-1,))
         return x
 
-    def log_jac_det(self, v, env=None):
+    def log_jac_det(self, v, env=None, memo=None):
         if self.positive:
             return torch.sum(v, dim=-1)
         return torch.sum(v[..., 1:], dim=-1)
@@ -145,23 +242,23 @@ class ChainedTransform(Transform):
         self.name = "chain_" + "_".join(t.name for t in self.transforms)
         self.event_ndim = max((t.event_ndim for t in self.transforms), default=0)
 
-    def forward(self, x, env=None):
+    def forward(self, x, env=None, memo=None):
         for t in self.transforms:
-            x = t.forward(x, env)
+            x = t.forward(x, env, memo)
         return x
 
-    def backward(self, v, env=None):
+    def backward(self, v, env=None, memo=None):
         for t in reversed(self.transforms):
-            v = t.backward(v, env)
+            v = t.backward(v, env, memo)
         return v
 
-    def log_jac_det(self, v, env=None):
+    def log_jac_det(self, v, env=None, memo=None):
         # each part's term is reduced to the smallest ndim among them (a
         # vector part collapses the core axis); batch axes stay
         dets = []
         for t in reversed(self.transforms):
-            dets.append(torch.as_tensor(t.log_jac_det(v, env)))
-            v = t.backward(v, env)
+            dets.append(torch.as_tensor(t.log_jac_det(v, env, memo)))
+            v = t.backward(v, env, memo)
         ndim0 = min(d.ndim for d in dets)
         total = 0.0
         for d in dets:
@@ -185,5 +282,12 @@ class ChainedTransform(Transform):
 
 
 log = LogTransform()
+logodds = LogOddsTransform()
+log_exp_m1 = LogExpM1Transform()
+circular = CircularTransform()
 simplex = SimplexTransform()
 ordered = OrderedTransform()
+
+# the reference's names
+Chain = ChainedTransform
+Interval = IntervalTransform

@@ -57,7 +57,7 @@ def support_point_values(model, overrides=None, generator=None):
         strategy = strategies.get(rv.name, strategies.get(rv.value_name, "support_point"))
         x = _strategy_value(rv, strategy, env, memo, generator).to(torch.float64)
         env[rv.name] = x
-        values[rv.value_name] = rv.transform.forward(x, env) if rv.transform else x
+        values[rv.value_name] = rv.transform.forward(x, env, memo) if rv.transform else x
     return values
 
 

@@ -212,12 +212,13 @@ class Model:
             env = {}
             for rv in free_RVs:
                 v = value_dict[rv.value_name]
-                env[rv.name] = rv.transform.backward(v, env) if rv.transform else v
+                env[rv.name] = rv.transform.backward(v, env, memo) if rv.transform else v
             terms = {}
             for rv in free_RVs:
                 lp = rv.dist.logp(env[rv.name], env, memo).sum()
                 if jacobian and rv.transform is not None:
-                    lp = lp + rv.transform.log_jac_det(value_dict[rv.value_name], env).sum()
+                    lp = lp + rv.transform.log_jac_det(value_dict[rv.value_name], env,
+                                                       memo).sum()
                 terms[rv.name] = lp
             for orv in observed_RVs:
                 lp = orv.dist.logp(orv._eval(env, memo), env, memo)
@@ -262,19 +263,21 @@ class Model:
         """The flat layout of `vars` (default: every free RV)."""
         return RaveledInfo.from_rvs(self.free_RVs if vars is None else vars)
 
-    def constrain(self, value_dict):
-        """{value name: unconstrained value} -> {rv name: constrained value}."""
+    def constrain(self, value_dict, memo=None):
+        """{value name: unconstrained value} -> {rv name: constrained value};
+        `memo` holds the constants placed on the values' device (see
+        `placed_constants`), which parametrised transforms read."""
         env = {}
         for rv in self.free_RVs:
             v = value_dict[rv.value_name]
-            env[rv.name] = rv.transform.backward(v, env) if rv.transform else v
+            env[rv.name] = rv.transform.backward(v, env, memo) if rv.transform else v
         return env
 
-    def unconstrain(self, point):
+    def unconstrain(self, point, memo=None):
         """{rv name: constrained value} -> {value name: unconstrained value}."""
         env = dict(point)
         return {
-            rv.value_name: rv.transform.forward(point[rv.name], env) if rv.transform
+            rv.value_name: rv.transform.forward(point[rv.name], env, memo) if rv.transform
             else point[rv.name]
             for rv in self.free_RVs
         }
@@ -323,7 +326,7 @@ class Model:
             env = {}
             for rv in free_RVs:
                 v = vals[rv.value_name]
-                env[rv.name] = rv.transform.backward(v, env) if rv.transform else v
+                env[rv.name] = rv.transform.backward(v, env, memo) if rv.transform else v
             out = dict(env)
             for det in deterministics:
                 out[det.name] = det._eval(env, memo)

@@ -11,7 +11,10 @@ hierarchical logistic GLM with 10,004 free parameters that
 `suite.py::case_stress_chees` samples with ChEES. `smc_mixture_model` is
 BASELINE config #5 (`suite.py::case_smc`), the bimodal mixture that
 `sample_smc` samples, and `mixture_model` the three-component mixture of
-`suite.py::case_mixture`, which it samples with NUTS. Each builder takes the
+`suite.py::case_mixture`, which it samples with NUTS. `best_model` is
+`suite.py::case_best`'s two-group Student-t comparison (BEST), and
+`hierarchical_binomial_model` the Beta-Binomial partial pooling of
+`examples/hierarchical_binomial.py`. Each builder takes the
 package to build with (`pymc_tpu_torch` by default), so the reference
 package builds the same model from the same data. The radon GLM's builder
 is `bench.build_model`; its sampling arguments are here.
@@ -30,7 +33,9 @@ __all__ = [
     "GP_MAP_SAMPLE_KWARGS",
     "stress_glm_model", "STRESS_HYPERS", "STRESS_SAMPLE_KWARGS",
     "smc_mixture_model", "SMC_SAMPLE_KWARGS", "SMC_SEEDS", "smc_chain_estimates",
-    "mixture_model",
+    "mixture_model", "best_data", "best_model", "BEST_SAMPLE_KWARGS", "BEST_SMOKE_KWARGS",
+    "BEST_SCALARS",
+    "hierarchical_binomial_model", "BINOMIAL_SAMPLE_KWARGS", "BINOMIAL_SCALARS",
 ]
 
 # bench.py's many-chain configuration (pooled mass and step, target_accept
@@ -59,12 +64,11 @@ GP_SAMPLE_KWARGS = dict(draws=300, tune=300, chains=64, random_seed=0, mass_adap
 # the least that converges it, and its 128 draws take some 35 s
 GP_SMOKE_KWARGS = dict(GP_SAMPLE_KWARGS, draws=200, tune=200)
 GP_SCALARS = ("ls", "eta", "sigma")
-# the latent GP (case_gp) at 64 chains as scripts/probe_torch_gp_latent.py
-# samples it: the suite's arguments cut in depth from 300/300 to 100/100,
-# the least the tests allow. Its 64 lock-step trees take ~1,000 leapfrogs a
-# draw (mean depth 8.16, the deepest tree at the limit of 10), so 100/100
-# took 2,685 s of sampling on the H100, past chip_smoke.py's whole limit;
-# it runs in that script instead
+# the latent GP (case_gp) at 64 chains as chip_smoke.py phase 9c samples
+# it: the suite's arguments cut in depth from 300/300 to 100/100, the least
+# the tests allow. Its 64 lock-step trees take ~1,000 leapfrogs a draw (the
+# deepest tree near the limit of 10), ~150 s on the H100 with the replayed
+# logp+grad (PERF.md §6)
 GP_LATENT_SAMPLE_KWARGS = dict(GP_SAMPLE_KWARGS, draws=100, tune=100)
 # phase 10c: config #4's marginal GP started at its MAP point with the
 # static full mass the Hessian there gives (init="map"); 100/100, cut from
@@ -338,3 +342,78 @@ def mixture_model(pm=None):
                        initval=np.array([-1.0, 0.0, 1.0]), dims="comp")
         pm.Mixture("y", w, pm.Normal.dist(mu, 1.0), observed=y)
     return m
+
+
+# case_best's keyword arguments to `sample` at its accelerator chain count
+# (512 chains, pooled mass as the suite sets from 64 chains on)
+BEST_SAMPLE_KWARGS = dict(chains=512, tune=1000, draws=5000, random_seed=0, mass_adapt="pooled")
+# chip_smoke.py phase 11a's, cut in depth to draws 2000: uncut, the phase
+# took 159.0 s on the H100 (25 ms a draw), over the ~100 s it may take
+BEST_SMOKE_KWARGS = dict(BEST_SAMPLE_KWARGS, draws=2000)
+BEST_SCALARS = ("group1_mean", "group2_mean", "group1_std", "group2_std", "nu_minus_one",
+                "difference of means")
+
+
+def best_data():
+    """(drug, placebo): the two groups' IQ scores of `benchmarks/suite.py::
+    case_best` (Kruschke's BEST drug evaluation, 47 and 42 values)."""
+    drug = np.array([101, 100, 102, 104, 102, 97, 105, 105, 98, 101, 100,
+                     123, 105, 103, 100, 95, 102, 106, 109, 102, 82, 102,
+                     100, 102, 102, 101, 102, 102, 103, 103, 97, 97, 103,
+                     101, 97, 104, 96, 103, 124, 101, 101, 100, 101, 101,
+                     104, 100, 101], dtype=float)
+    placebo = np.array([99, 101, 100, 101, 102, 100, 97, 101, 104, 101,
+                        102, 102, 100, 105, 88, 101, 100, 104, 100, 100,
+                        100, 101, 102, 103, 97, 101, 101, 100, 101, 99,
+                        101, 100, 100, 101, 100, 99, 101, 100, 102, 99,
+                        100, 99], dtype=float)
+    return drug, placebo
+
+
+def best_model(pm=None):
+    """group means ~ Normal(pooled mean, 2 pooled sd), group sds ~
+    Uniform(1, 10), nu - 1 ~ Exponential(1/29); each group ~ StudentT(nu,
+    mean, lam = sd^-2), and the deterministic `difference of means`
+    (`benchmarks/suite.py::case_best`). 5 free parameters: two interval,
+    one log, two real."""
+    if pm is None:
+        import pymc_tpu_torch as pm
+    drug, placebo = best_data()
+    yall = np.concatenate([drug, placebo])
+    mu_m, mu_s = yall.mean(), yall.std() * 2
+    with pm.Model() as m:
+        g1m = pm.Normal("group1_mean", mu_m, mu_s)
+        g2m = pm.Normal("group2_mean", mu_m, mu_s)
+        g1s = pm.Uniform("group1_std", 1, 10)
+        g2s = pm.Uniform("group2_std", 1, 10)
+        nu = pm.Exponential("nu_minus_one", 1 / 29.0) + 1
+        pm.StudentT("drug", nu=nu, mu=g1m, lam=g1s**-2, observed=drug)
+        pm.StudentT("placebo", nu=nu, mu=g2m, lam=g2s**-2, observed=placebo)
+        pm.Deterministic("difference of means", g1m - g2m)
+    return m
+
+
+# examples/hierarchical_binomial.py's arguments at 64 chains with a pooled
+# mass (the example runs 4 chains at seed 3)
+BINOMIAL_SAMPLE_KWARGS = dict(chains=64, tune=1000, draws=1000, random_seed=0,
+                              mass_adapt="pooled")
+BINOMIAL_SCALARS = ("phi", "kappa_log", "kappa")
+
+
+def hierarchical_binomial_model(pm=None):
+    """phi ~ Uniform(0, 1), kappa_log ~ Exponential(1.5), kappa = exp(
+    kappa_log); theta ~ Beta(phi kappa, (1 - phi) kappa) for each of 18
+    players; hits ~ Binomial(45, theta) on the Efron-Morris batting data
+    (`examples/hierarchical_binomial.py`). 20 free parameters: logodds (18),
+    interval and log."""
+    if pm is None:
+        import pymc_tpu_torch as pm
+    hits = np.array([18, 17, 16, 15, 14, 14, 13, 12, 11, 11, 10, 10, 10, 10, 10, 9, 8, 7])
+    at_bats = np.full(18, 45)
+    with pm.Model(coords={"player": np.arange(18)}) as model:
+        phi = pm.Uniform("phi", 0.0, 1.0)
+        kappa_log = pm.Exponential("kappa_log", lam=1.5)
+        kappa = pm.Deterministic("kappa", pm.math.exp(kappa_log))
+        theta = pm.Beta("theta", alpha=phi * kappa, beta=(1.0 - phi) * kappa, dims="player")
+        pm.Binomial("y", n=at_bats, p=theta, observed=hits, dims="player")
+    return model

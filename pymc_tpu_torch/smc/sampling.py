@@ -78,11 +78,12 @@ def prior_particles(model, n, generator, device=None, dtype=None):
     dtype = dtype or floatX(device)
     gen = _generative_fn(model, device, dtype)
     info = model.raveled_info()
+    placed = model.placed_constants(device, dtype)
 
     def one(_):
         draw = gen(generator)
-        return ravel_point(model.unconstrain({rv.name: draw[rv.name] for rv in model.free_RVs}),
-                           info).to(dtype)
+        point = {rv.name: draw[rv.name] for rv in model.free_RVs}
+        return ravel_point(model.unconstrain(point, dict(placed)), info).to(dtype)
 
     return torch.func.vmap(one, randomness="different")(torch.empty(n, device=device))
 

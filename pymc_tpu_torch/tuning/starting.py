@@ -54,10 +54,11 @@ def find_MAP(start=None, vars=None, method="L-BFGS-B", return_raw=False,
     info = model.raveled_info()
     init = _initial_point(model, device, dtype)
     if start is not None:
-        constrained = model.constrain(init)
+        placed = model.placed_constants(device, dtype)
+        constrained = model.constrain(init, dict(placed))
         constrained.update({k: torch.as_tensor(np.array(v), device=device, dtype=dtype)
                             for k, v in start.items()})
-        q0 = ravel_point(model.unconstrain(constrained), info)
+        q0 = ravel_point(model.unconstrain(constrained, placed), info)
     else:
         q0 = ravel_point(init, info)
     q0 = _to_numpy(q0).astype(np.float64)
@@ -94,7 +95,8 @@ def _flat_point(model, info, point, device, dtype):
         return ravel_point(values, info)
     constrained = {k: torch.as_tensor(np.array(v), device=device, dtype=dtype)
                    for k, v in point.items()}
-    return ravel_point(model.unconstrain(constrained), info)
+    return ravel_point(model.unconstrain(constrained, model.placed_constants(device, dtype)),
+                       info)
 
 
 def find_hessian(point=None, vars=None, model=None, negate_output=True, device=None):

@@ -146,8 +146,9 @@ class Approximation:
             placed[id(k)] = v.to(self.dtype) if v.is_floating_point() else v
 
         def eval_at(z):
-            env = self.model.constrain(unravel_vector(z, self.info))
-            return evaluate(node, env, dict(placed))
+            memo = dict(placed)
+            env = self.model.constrain(unravel_vector(z, self.info), memo)
+            return evaluate(node, env, memo)
 
         if deterministic:
             out = eval_at(self._mean_flat())
@@ -210,8 +211,10 @@ class Approximation:
         transform the mean entry is the posterior median)."""
         from ..backends.inference_data import DataVar
 
+        placed = self.model.placed_constants(self.device, self.dtype)
+
         def constrained(flat):
-            env = self.model.constrain(unravel_vector(flat, self.info))
+            env = self.model.constrain(unravel_vector(flat, self.info), dict(placed))
             out = {}
             for rv in self.model.free_RVs:
                 arr = env[rv.name].detach().cpu().numpy()

@@ -37,7 +37,7 @@ from pymc_tpu_torch.models import gp_data  # noqa: E402
 
 FIXTURES = {name: os.path.join(ROOT, "tests", "data", f"torch_gp_{name}_reference.json")
             for name in ("latent", "marginal")}
-RATES = (3e-4, F32_PRIOR_JITTER, 1e-5)
+RATES = tuple(sorted({3e-4, F32_PRIOR_JITTER, 1e-4, 3e-5, 1e-5}, reverse=True))
 
 
 def posterior_moments(jitter, x, y):
@@ -101,7 +101,7 @@ def main():
         print(f"{name} fixture (pymc_tpu, float64, NUTS): " + "; ".join(
             f"{k} {v['mean']:.5f} (mcse {v['mcse']:.5f})" for k, v in ref.items()))
     print(f"min spacing of the inputs {np.diff(x).min():.3e}")
-    for r in (3e-4, F32_PRIOR_JITTER, 1e-5, 3e-6):
+    for r in RATES + (3e-6,):
         fails, err = cholesky_sweep(x, r)
         print(f"float32 Cholesky at jitter {r:g} (unit amplitude): {fails} of 200 "
               f"lengthscales fail; largest ||L L^T - A||_2 / jitter {err:.3f}")

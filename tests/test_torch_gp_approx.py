@@ -448,13 +448,13 @@ def test_float32_prior_jitter_is_relative_to_the_diagonal():
     from pymc_tpu_torch.gp.gp import F32_COND_JITTER, F32_PRIOR_JITTER, _cond_jitter
 
     K = torch.tensor([[4.0, 1.0], [1.0, 2.0]])
-    for scale, j in ((1.0, 1e-4), (100.0, 300.0 * F32_PRIOR_JITTER)):
+    for scale, j in ((0.01, 1e-4), (100.0, 300.0 * F32_PRIOR_JITTER)):
         out = evaluate_t(pmt.gp.util.stabilize(scale * K))
         torch.testing.assert_close(out, scale * K + j * torch.eye(2), rtol=1e-6, atol=0)
     out = _cond_jitter(100.0 * K, None, 1e-6)
     torch.testing.assert_close(out, 100.0 * K + 300.0 * F32_COND_JITTER * torch.eye(2),
                                rtol=1e-6, atol=0)
-    assert F32_PRIOR_JITTER == 3e-5 and F32_COND_JITTER == 3e-4
+    assert F32_PRIOR_JITTER == 1e-4 and F32_COND_JITTER == 3e-4
 
 
 def test_float32_latent_model_is_the_float64_model_with_its_jitter():
@@ -474,8 +474,10 @@ def test_float32_latent_model_is_the_float64_model_with_its_jitter():
     lp_err, g_err = errs(F32_PRIOR_JITTER, 1e-4)
     assert lp_err < 1e-2 and g_err < 5e-3, (lp_err, g_err)
     # the tolerance tells the rule apart from the JAX package's float32 rule
-    # and from the float64 model
-    assert errs(3e-4, 1e-4)[0] > 1e-2 and errs(0.0, 1e-6)[0] > 1e-2
+    # (3e-4), from the earlier one of the port (3e-5), under which float32
+    # NUTS did not converge on the card, and from the float64 model
+    assert errs(3e-4, 1e-4)[0] > 1e-2 and errs(3e-5, 1e-4)[0] > 1e-2
+    assert errs(0.0, 1e-6)[0] > 1e-2
 
 
 @pytest.mark.parametrize("eta", [0.5, 2.35, 8.0])
