@@ -188,6 +188,9 @@ SMC_REFERENCE = os.path.join(ROOT, "tests", "data", "torch_smc_reference.json")
 GP_LATENT_REFERENCE = os.path.join(ROOT, "tests", "data", "torch_gp_latent_reference.json")
 BEST_REFERENCE = os.path.join(ROOT, "tests", "data", "torch_best_reference.json")
 BINOMIAL_REFERENCE = os.path.join(ROOT, "tests", "data", "torch_binomial_reference.json")
+CHANGEPOINT_REFERENCE = os.path.join(ROOT, "tests", "data", "torch_changepoint_reference.json")
+# phase 12b: explicit HamiltonianMC on the radon GLM
+HMC_RADON_KWARGS = dict(chains=64, tune=500, draws=300, random_seed=0)
 # The default prior jitter of the latent, TP, Kron and sparse forms depends
 # on the float type (1e-6 or 1e-4 in float64, at least 1e-4 in float32), so
 # the float32 and float64 models differ by more than float32's rounding:
@@ -1871,6 +1874,309 @@ def run_distribution_models(card):
     return {"BEST": best, "hierarchical binomial": binomial}
 
 
+class CaptureFailures:
+    """The warnings of ops/cuda_graph.py for a capture that failed (that
+    shape then runs eagerly), collected from the port's logger while
+    phase 12 runs."""
+
+    def __init__(self):
+        import logging
+
+        self.messages = []
+        self.handler = logging.Handler(logging.WARNING)
+        self.handler.emit = lambda record: (
+            self.messages.append(record.getMessage())
+            if "CUDA graph capture failed" in record.getMessage() else None)
+        logging.getLogger("pymc_tpu_torch").addHandler(self.handler)
+
+    def close(self):
+        import logging
+
+        logging.getLogger("pymc_tpu_torch").removeHandler(self.handler)
+
+
+def graphs_captured(label, model, idata, failures, logp=(), logp_grad=()):
+    """Fail unless the steps' density ran from captured CUDA graphs: each
+    shape the steps call, (m C, D) for m in `logp` and `logp_grad`, has a
+    graph in the model's FlatDensity on the card; every draw called the
+    logp (and the logp+grad, where a NUTS or HMC block runs); and no
+    capture failed since phase 12 began."""
+    from pymc_tpu_torch.step_methods.compound import flat_density
+
+    if failures.messages:
+        raise AssertionError(f"{label}: {failures.messages}")
+    density = flat_density(model, torch.device("cuda"), torch.float32)
+    a = idata.posterior.attrs
+    C, steps = idata.posterior.dims["chain"], idata.posterior.dims["draw"]
+    D = density.info.total_size
+    for fn_name, fn, mults, calls in (("logp", density._logp, logp, a["n_logp"]),
+                                      ("logp+grad", density._logp_grad, logp_grad,
+                                       a["n_logp_grad"])):
+        graphs = {key[0]: g for key, g in fn.graphs.items()}
+        print(f"{label}: {fn_name} calls {calls}, captured shapes "
+              + (", ".join(str(k) for k in graphs) or "none"))
+        for m in mults:
+            g = graphs.get((m * C, D))
+            if g is None or g.graph is None:
+                raise AssertionError(f"{label}: {fn_name} at {(m * C, D)} not captured "
+                                     f"(captured: {list(graphs)})")
+        if mults and not calls >= steps:
+            raise AssertionError(f"{label}: {calls} {fn_name} calls for {steps} draws")
+        eager = [k for k, g in graphs.items() if g.graph is None]
+        if eager:
+            raise AssertionError(f"{label}: CUDA graph capture failed for {fn_name} {eager}")
+
+
+def replay_ms(label, density, chains, card):
+    """Print the host and device ms of one replayed logp at (2C, D) and one
+    logp+grad at (C, D), the shapes the steps call."""
+    D = density.info.total_size
+    q = torch.zeros((chains, D), dtype=density.dtype, device="cuda")
+    for name, fn, x in (("logp", density._logp, torch.cat([q, q])),
+                        ("logp+grad", density._logp_grad, q)):
+        dev, host = cuda_ms(lambda: fn(x), n=50, warmup=5)
+        print(f"{label}: replayed {name} at {tuple(x.shape)}: host {host:.4f} ms, "
+              f"device {dev:.4f} ms  [{card}]")
+
+
+def step_summary(label, idata, names, wall, card):
+    """Print each step's host ms a draw, min-ESS/s and the walls."""
+    from pymc_tpu_torch.stats.convergence import ess
+
+    post = idata.posterior
+    a = post.attrs
+    min_ess = min(float(np.nanmin(ess(post[n].values))) for n in names)
+    per_step = "; ".join(f"{k} {v:.3f}" for k, v in a["step_host_ms"].items())
+    print(f"{label}: host ms a draw, by step: {per_step}")
+    print(f"{label}: min-ESS/s {min_ess / a['sampling_time']:.1f} (min ESS {min_ess:.1f}); "
+          f"sampling wall {a['sampling_time']:.2f} s, tuning wall {a['tuning_time']:.2f} s, "
+          f"phase wall {wall:.1f} s; logp calls {a['n_logp']}, logp+grad calls "
+          f"{a['n_logp_grad']}  [{card}]")
+
+
+def hold_to(label, x, mean, sd=None):
+    """x's mean (and sd) within 5 MCSE of the known values; returns the z's."""
+    from pymc_tpu_torch.stats.convergence import mcse_mean, mcse_sd
+
+    x = np.asarray(x, dtype=np.float64)
+    zs = [(float(x.mean()) - mean) / float(mcse_mean(x))]
+    if sd is not None:
+        zs.append((float(x.std()) - sd) / float(mcse_sd(x)))
+    print(f"{label}: mean {float(x.mean()):.5f} (known {mean:.5f}), sd {float(x.std()):.5f}"
+          + (f" (known {sd:.5f})" if sd is not None else "")
+          + "; " + ", ".join(f"{z:+.2f}" for z in zs) + " MCSE")
+    if not all(abs(z) <= 5.0 for z in zs):
+        raise AssertionError(f"{label}: more than 5 MCSE off its known moments")
+    return zs
+
+
+def run_changepoint(card, failures):
+    """Phase 12a: the change-point model (models.changepoint_model, its two
+    missing counts imputed) with the automatic assignment NUTS + Metropolis
+    + Metropolis; returns {kernel: launches}."""
+    import warnings
+
+    from pymc_tpu_torch import models
+    from pymc_tpu_torch.step_methods.compound import assign_step_methods, flat_density
+    from pymc_tpu_torch.stats.convergence import mcse_mean, rhat
+
+    phase("12a change-point model: NUTS + Metropolis, two imputed counts")
+    config = models.CHANGEPOINT_SAMPLE_KWARGS
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        model = models.changepoint_model()
+    if not any(type(w.message).__name__ == "ImputationWarning" for w in caught):
+        raise AssertionError("change-point: no ImputationWarning")
+    expected = ("CompoundStep([NUTS(['early_rate', 'late_rate']), Metropolis(['switchpoint']), "
+                "Metropolis(['disasters_unobserved'])])")
+    if repr(assign_step_methods(model)) != expected:
+        raise AssertionError(f"change-point: assignment {assign_step_methods(model)!r}")
+    t0 = time.perf_counter()
+    idata, launches = sample_counted(model, config)
+    wall = time.perf_counter() - t0
+    post, stats, a = idata.posterior, idata.sample_stats, idata.posterior.attrs
+    print(f"change-point: {a['stepper']}; launches {launches}")
+    if a["stepper"] != expected:
+        raise AssertionError(f"change-point: sampled with {a['stepper']}")
+    expect = {"nuts_leaf": a["nuts0_leapfrogs"], "kick_drift": a["nuts0_subtrees"],
+              "final_kick": 0, "cholesky": 0}
+    if not (a["nuts0_leapfrogs"] > 0 and launches == expect):
+        raise AssertionError(f"change-point: launches {launches} != {expect}")
+    steps = config["tune"] + config["draws"]
+    print(f"change-point: leapfrogs a draw: lock-step {a['nuts0_leapfrogs'] / steps:.2f}, "
+          f"per-chain mean {float(stats['nuts0_n_steps'].values.mean()):.2f} (draws only); "
+          f"host reads a draw {a['nuts0_host_reads'] / steps:.2f}")
+    graphs_captured("change-point", model, idata, failures, logp=(2,), logp_grad=(1,))
+    replay_ms("change-point", flat_density(model, torch.device("cuda"), torch.float32),
+              config["chains"], card)
+    # the draws: finite, the imputed counts integers in the Poisson's
+    # support, the observed counts the data in every draw
+    for name in post.keys():
+        if not np.isfinite(post[name].values).all():
+            raise AssertionError(f"change-point: non-finite draws in {name}")
+    unobserved = post["disasters_unobserved"].values
+    if unobserved.dtype != np.int64 or post["switchpoint"].values.dtype != np.int64:
+        raise AssertionError("change-point: discrete draws are not int64")
+    if unobserved.min() < 0:
+        raise AssertionError("change-point: an imputed count below 0")
+    _, counts = models.changepoint_data()
+    seen = ~np.isnan(counts)
+    disasters = post["disasters"].values
+    if not (disasters[..., seen] == counts[seen]).all():
+        raise AssertionError("change-point: an observed count changed")
+    if not (disasters[..., ~seen] == unobserved).all():
+        raise AssertionError("change-point: the imputed counts did not reach disasters")
+    with open(CHANGEPOINT_REFERENCE) as f:
+        ref = json.load(f)
+    draws = {n: post[n].values for n in models.CHANGEPOINT_SCALARS}
+    for i in range(unobserved.shape[-1]):
+        draws[f"disasters_unobserved[{i}]"] = unobserved[..., i]
+    for name, x in draws.items():
+        x = x.astype(np.float64)
+        mcse = float(mcse_mean(x))
+        z = (float(x.mean()) - ref["exact"][name]) / mcse
+        r = ref["params"][name]
+        z_ref = (float(x.mean()) - r["mean"]) / float(np.hypot(mcse, r["mcse"]))
+        print(f"change-point {name}: mean {float(x.mean()):.5f}, exact {ref['exact'][name]:.5f}: "
+              f"{z:+.2f} MCSE; pymc_tpu's {r['mean']:.5f}: {z_ref:+.2f} combined MCSE "
+              f"(pymc_tpu itself {r['mcse_from_exact']:+.2f} MCSE from exact); R-hat "
+              f"{float(rhat(x)):.4f}")
+        if not abs(z) <= 5.0:
+            raise AssertionError(f"change-point: {name} is {z:+.2f} MCSE off the exact mean")
+    max_rhat = max(float(np.nanmax(rhat(post[n].values))) for n in
+                   ("early_rate", "late_rate", "switchpoint", "disasters_unobserved"))
+    print(f"change-point: max R-hat {max_rhat:.4f}")
+    if not max_rhat < 1.05:
+        raise AssertionError(f"change-point: max R-hat {max_rhat:.4f} >= 1.05")
+    step_summary("change-point", idata, ["early_rate", "late_rate", "switchpoint",
+                                         "disasters_unobserved"], wall, card)
+    return launches
+
+
+def run_hmc_radon(card, failures):
+    """Phase 12b: step=HamiltonianMC on the radon GLM; every leapfrog one
+    kick_drift and one final_kick launch. Returns {kernel: launches}."""
+    import pymc_tpu_torch as pm
+
+    phase("12b radon GLM with step=pm.HamiltonianMC()")
+    model = bench_module().build_model(pm)
+    step = pm.HamiltonianMC(model=model)
+    t0 = time.perf_counter()
+    idata, launches = sample_counted(model, dict(HMC_RADON_KWARGS, step=step))
+    wall = time.perf_counter() - t0
+    post, a = idata.posterior, idata.posterior.attrs
+    leapfrogs = a["leapfrogs"]
+    expect = {"kick_drift": leapfrogs, "final_kick": leapfrogs, "nuts_leaf": 0, "cholesky": 0}
+    steps = HMC_RADON_KWARGS["tune"] + HMC_RADON_KWARGS["draws"]
+    print(f"HMC radon: leapfrogs {leapfrogs} (the per-draw largest n_steps, "
+          f"{leapfrogs / steps:.2f} a draw); launches {launches}; host reads {a['host_reads']}; "
+          f"acceptance {float(idata.sample_stats['acceptance_rate'].values.mean()):.3f}")
+    if not (leapfrogs > 0 and launches == expect):
+        raise AssertionError(f"HMC radon: launches {launches} != {expect}")
+    graphs_captured("HMC radon", model, idata, failures, logp_grad=(1,))
+    step_summary("HMC radon", idata, ["mu_a", "mu_b", "sigma_a", "sigma_b", "a", "b"], wall,
+                 card)
+    check_means("HMC radon", post, SCALARS, REFERENCE)
+    return launches
+
+
+def run_steppers(card, failures):
+    """Phase 12c: Metropolis, Slice, DEMetropolisZ,
+    DEMetropolis, BinaryGibbsMetropolis and CategoricalGibbsMetropolis on
+    models with known posteriors (tests/step_methods/test_steps.py), each
+    held to its known moments within 5 MCSE. Returns {kernel: launches}
+    summed over them (the NUTS block of the mixed model launches the leaf
+    kernel)."""
+    import pymc_tpu_torch as pm
+
+    phase("12c the other steppers on known posteriors")
+
+    def run(label, model, step, config, check, shapes):
+        t0 = time.perf_counter()
+        idata, launches = sample_counted(model, dict(config, step=step))
+        wall = time.perf_counter() - t0
+        post = idata.posterior
+        for name in post.keys():
+            if not np.isfinite(post[name].values).all():
+                raise AssertionError(f"{label}: non-finite draws in {name}")
+        check(post)
+        graphs_captured(label, model, idata, failures, **shapes)
+        step_summary(label, idata, list(post.keys()), wall, card)
+        print(f"{label}: launches {launches}")
+        for k, n in launches.items():
+            total[k] += n
+        return idata
+
+    total = dict.fromkeys(("kick_drift", "final_kick", "nuts_leaf", "cholesky"), 0)
+    base = dict(chains=64, tune=500, draws=500, random_seed=0)
+    with pm.Model() as normal:
+        pm.Normal("x", 1.0, 2.0)
+    run("Metropolis", normal, pm.Metropolis(model=normal), base,
+        lambda p: hold_to("Metropolis x", p["x"].values, 1.0, 2.0), dict(logp=(2,)))
+    idata = run("Slice", normal, pm.Slice(model=normal), base,
+                lambda p: hold_to("Slice x", p["x"].values, 1.0, 2.0), dict(logp=(1, 2)))
+    print(f"Slice: host reads {idata.posterior.attrs['host_reads']} "
+          f"({idata.posterior.attrs['host_reads'] / 1000:.2f} a draw)")
+    with pm.Model() as normal3:
+        pm.Normal("x", 0.0, 1.0, shape=3)
+
+    def hold3(p):
+        for k in range(3):
+            hold_to(f"DEMetropolisZ x[{k}]", p["x"].values[..., k], 0.0, 1.0)
+
+    run("DEMetropolisZ", normal3, pm.DEMetropolisZ(model=normal3),
+        dict(base, tune=2000, draws=1000), hold3, dict(logp=(2,)))
+    with pm.Model() as normal2:
+        pm.Normal("x", 2.0, 1.0)
+    run("DEMetropolis", normal2, pm.DEMetropolis(model=normal2), base,
+        lambda p: hold_to("DEMetropolis x", p["x"].values, 2.0, 1.0), dict(logp=(2,)))
+
+    # test_mixed_compound: z switches modes only through mu, so each chain
+    # keeps its mode; mu + 2 z is the same in both (its posterior is
+    # N(v n ybar, v), v = 1 / (1/25 + n), to within 2 v / 25 = 0.0013)
+    y = np.random.default_rng(9).normal(3.0, 1.0, 60)
+    with pm.Model() as mixed:
+        mu = pm.Normal("mu", 0, 5)
+        z = pm.Bernoulli("z", 0.5)
+        pm.Normal("y", mu + 2.0 * z, 1.0, observed=y)
+    v = 1.0 / (1.0 / 25.0 + len(y))
+    run("NUTS + BinaryGibbsMetropolis", mixed,
+        [pm.NUTS(vars=[mixed["mu"]], model=mixed), pm.BinaryGibbsMetropolis(
+            vars=[mixed["z"]], model=mixed)], base,
+        lambda p: hold_to("mu + 2 z", p["mu"].values + 2.0 * p["z"].values,
+                          v * y.sum(), np.sqrt(v)), dict(logp=(2,), logp_grad=(1,)))
+
+    p_cat = np.array([0.1, 0.2, 0.7])
+    with pm.Model() as categorical:
+        pm.Categorical("c", p=p_cat)
+    mean = float(np.arange(3) @ p_cat)
+
+    def hold_cat(p):
+        c = p["c"].values
+        if c.dtype != np.int64:
+            raise AssertionError(f"Categorical draws are {c.dtype}")
+        hold_to("CategoricalGibbsMetropolis c", c, mean,
+                float(np.sqrt(np.arange(3) ** 2 @ p_cat - mean**2)))
+        for k in range(3):
+            hold_to(f"CategoricalGibbsMetropolis c == {k}", (c == k).astype(float), p_cat[k])
+
+    run("CategoricalGibbsMetropolis", categorical,
+        pm.CategoricalGibbsMetropolis(model=categorical), base, hold_cat, dict(logp=(3,)))
+    return total
+
+
+def run_step_methods(card):
+    """Phase 12: step methods and compound sampling; returns {path:
+    {kernel: launches}}."""
+    failures = CaptureFailures()
+    try:
+        return {"change-point": run_changepoint(card, failures),
+                "HMC radon": run_hmc_radon(card, failures),
+                "steppers": run_steppers(card, failures)}
+    finally:
+        failures.close()
+
+
 def run_init_family(card, radon_idata):
     """Phase 10: the init family; returns {path: {kernel: launches}}."""
     paths = {"radon ADVI init": run_radon_advi(card),
@@ -1946,7 +2252,8 @@ def main():
     paths = {"radon": launches, "GP": gp_launches, "stress": stress_launches,
              "SMC": smc_launches, "GP predictive": run_gp_predictive(card, gp_idata),
              "latent GP": latent_launches,
-             **run_init_family(card, idata), **run_distribution_models(card)}
+             **run_init_family(card, idata), **run_distribution_models(card),
+             **run_step_methods(card)}
     total = {k: sum(p[k] for p in paths.values()) for k in launches}
     kernels = kernel_records(total, errs, times, leaf, chol_err, chol_times)
     print("launches: " + "; ".join(f"{name} {p}" for name, p in paths.items()))

@@ -19,7 +19,10 @@ SVGD, ASVGD and the approximations), `find_MAP`/`find_hessian` and
 `find_constrained_prior`. The univariate distribution library (every
 class of the JAX package's continuous.py and discrete.py, the
 zero-inflated and hurdle mixtures), the log-odds, interval, log-expm1 and
-circular transforms, and `pm.math`. The package
+circular transforms, and `pm.math`. Step methods (NUTS, HamiltonianMC,
+Metropolis, the Gibbs and differential-evolution steps, Slice) and compound
+sampling, which `sample` uses for models with discrete free variables or
+when `step=` is given, and the imputation of missing observed values. The package
 imports torch and never jax; kernels are built at first use, never at
 import. Entry points run on the card unless `device="cpu"` is asked for.
 
@@ -32,7 +35,7 @@ import. Entry points run on the card unless `device="cpu"` is asked for.
     idata = pm.sample(draws=300, tune=300, chains=64, mass_adapt="pooled")
 """
 
-from . import distributions, gp, math, tuning, variational
+from . import distributions, gp, math, step_methods, tuning, variational
 from .distributions import *  # noqa: F401,F403
 from .distributions import __all__ as _dist_all
 from .func_utils import find_constrained_prior
@@ -41,6 +44,10 @@ from .sampling.forward import sample_posterior_predictive, sample_prior_predicti
 from .sampling.mcmc import init_nuts, sample
 from .smc.sampling import sample_smc
 from .stats.convergence import ess, rhat
+from .step_methods import (
+    NUTS, BinaryGibbsMetropolis, BinaryMetropolis, CategoricalGibbsMetropolis, CompoundStep,
+    DEMetropolis, DEMetropolisZ, HamiltonianMC, Metropolis, Slice,
+)
 from .tuning import find_hessian, find_MAP
 from .variational import (
     ADVI, ASVGD, KL, KSD, SVGD, Approximation, FullRankADVI, Group, ImplicitGradient, KLqp,
@@ -59,5 +66,7 @@ __all__ = [
     "ObjectiveFunction", "TestFunction", "Stein", "Group", "Approximation", "sample_approx",
     "MeanField", "FullRank", "Empirical", "sgd", "momentum", "nesterov_momentum", "adagrad",
     "adagrad_window", "rmsprop", "adadelta", "adam", "adamax", "apply_momentum",
-    "apply_nesterov_momentum", "norm_constraint", "total_norm_constraint",
+    "apply_nesterov_momentum", "norm_constraint", "total_norm_constraint", "step_methods",
+    "NUTS", "HamiltonianMC", "Metropolis", "BinaryMetropolis", "BinaryGibbsMetropolis",
+    "CategoricalGibbsMetropolis", "DEMetropolis", "DEMetropolisZ", "Slice", "CompoundStep",
 ]

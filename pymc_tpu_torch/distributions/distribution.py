@@ -22,7 +22,7 @@ import numpy as np
 import torch
 
 from ..config import intX
-from ..graph import Node, as_node, evaluate
+from ..graph import Node, apply, as_node, evaluate
 from . import transforms as tr
 
 __all__ = ["Distribution", "Continuous", "Discrete", "UNSET"]
@@ -258,12 +258,145 @@ class Distribution:
         """(lower, upper) of an "interval" support, either None where open."""
         raise NotImplementedError(f"{type(self).__name__} has no interval bounds")
 
+    def _gathered(self, shape, idx, batch_shape, extra_event=()):
+        """This distribution restricted to the flat batch indices `idx` of
+        `batch_shape`, with shape `shape + extra_event` (imputation). Rebuilt
+        by parameter name, as the JAX package does (its positional order
+        differs from the constructor's in some classes)."""
+        pe = self.param_event_ndims or (0,) * len(self.param_names)
+        kwargs = {
+            name: _gather_batch_param(p, batch_shape, idx, e)
+            for name, p, e in zip(self.param_names, self.param_values(), pe)
+            if p is not None
+        }
+        return type(self).dist(shape=tuple(shape) + tuple(extra_event), **kwargs)
+
     def __repr__(self):
         return f"<{type(self).__name__} shape={self.shape}>"
 
 
 class Continuous(Distribution):
     is_discrete = False
+
+
+def _gather_batch_param(p, shape, idx, event_ndim=0):
+    """Parameter `p` broadcast over the value's batch `shape` (keeping its
+    own trailing `event_ndim` dims) and gathered at the flat batch indices
+    `idx` (pymc_tpu/distributions/distribution.py:543). The indices are a
+    constant of the graph, so they move to the device with the model."""
+    if p is None:
+        return None
+
+    def gather(x, ix):
+        ev = tuple(x.shape[x.ndim - event_ndim:]) if event_ndim else ()
+        return torch.broadcast_to(x, tuple(shape) + ev).reshape((-1,) + ev)[ix]
+
+    return apply(gather, p, np.asarray(idx, dtype=np.int64))
+
+
+def _scatter_positions(mask):
+    """(flat mask, for each flat position the index of its entry among the
+    missing ones, 0 where observed): the constants that put the missing
+    entries into a full-shape value by a gather and a where, which vmap and
+    CUDA-graph capture both take."""
+    flat = np.asarray(mask, bool).ravel()
+    pos = np.where(flat, np.cumsum(flat) - 1, 0).astype(np.int64)
+    return as_node(flat), as_node(pos)
+
+
+def scatter_missing(full, missing, flat_mask, pos):
+    """`full` with its masked entries replaced, in order, by `missing`."""
+    flat = full.reshape(-1)
+    vals = missing.reshape(-1)[pos].to(flat.dtype)
+    return torch.where(flat_mask, vals, flat).reshape(full.shape)
+
+
+class _PartialObservedSlots(Distribution):
+    """Value slots for the missing entries of a multivariate value whose
+    mask splits its event rows: the joint observed term carries the whole
+    density, so the slots add zero (pymc_tpu/distributions/distribution.py:
+    563; reference partial_observed_rv_logprob); forward draws take the
+    missing positions of a full draw of the base."""
+
+    param_names = ()
+
+    def __dist_init__(self, base, mask):
+        self.base = base
+        self._mask = np.asarray(mask, bool)
+        self._idx = as_node(np.nonzero(self._mask.ravel())[0].astype(np.int64))
+        self.is_discrete = base.is_discrete
+
+    @property
+    def dtype(self):
+        return self.base.dtype
+
+    def inputs(self):
+        return [self._idx] + self.base.inputs()
+
+    def default_transform(self):
+        return None
+
+    def logp(self, value, env=None, memo=None):
+        value = torch.as_tensor(value)
+        dtype = value.dtype if value.is_floating_point() else torch.float64
+        return torch.zeros(value.shape, dtype=dtype, device=value.device)
+
+    def sample(self, generator, sample_shape=(), env=None, memo=None):
+        if isinstance(sample_shape, int):
+            sample_shape = (sample_shape,)
+        draw = self.base.sample(generator, tuple(sample_shape), env, memo)
+        flat = draw.reshape(tuple(sample_shape) + (-1,))
+        return flat[..., evaluate(self._idx, env, memo)]
+
+    def support_point(self, env=None, memo=None):
+        sp = torch.broadcast_to(self.base.support_point(env, memo), self.base.shape)
+        return sp.reshape(-1)[evaluate(self._idx, env, memo).cpu()]
+
+
+class _PartialObservedJoint(Distribution):
+    """The observed part of a multivariate value whose mask splits its
+    event rows: its logp is the base's joint density of the value with the
+    `{name}_unobserved` slots put into its missing entries
+    (pymc_tpu/distributions/distribution.py:602)."""
+
+    param_names = ()
+
+    def __dist_init__(self, base, mask, free_name):
+        self.base = base
+        self._mask = np.asarray(mask, bool)
+        self._flat_mask, self._pos = _scatter_positions(self._mask)
+        self._free_name = free_name
+        self.is_discrete = base.is_discrete
+
+    @property
+    def dtype(self):
+        return self.base.dtype
+
+    def inputs(self):
+        return [self._flat_mask, self._pos] + self.base.inputs()
+
+    def default_transform(self):
+        return None
+
+    def logp(self, value, env=None, memo=None):
+        memo = {} if memo is None else memo
+        value = torch.as_tensor(value)
+        free_vals = (env or {}).get(self._free_name)
+        if free_vals is not None:
+            if not value.is_floating_point():
+                value = value.to(free_vals.dtype if free_vals.is_floating_point()
+                                 else torch.float64)
+            value = scatter_missing(value, free_vals, evaluate(self._flat_mask, env, memo),
+                                    evaluate(self._pos, env, memo))
+        return self.base.logp(value, env, memo)
+
+    def sample(self, generator, sample_shape=(), env=None, memo=None):
+        # the full-shape base draw; the combined deterministic puts the
+        # slots' draw into its missing entries
+        return self.base.sample(generator, sample_shape, env, memo)
+
+    def support_point(self, env=None, memo=None):
+        return torch.broadcast_to(self.base.support_point(env, memo), self.base.shape)
 
 
 class Discrete(Distribution):

@@ -79,11 +79,17 @@ def apply(fn, *args, **kwargs):
 
     Array-like operands (numpy arrays, lists, tensors) of a symbolic call
     become ConstantNodes so that they move to the device with the model;
-    Python numbers stay static arguments. kwargs must be static.
+    Python numbers stay static arguments, except a float beside an integer
+    or boolean Node (a discrete variable): it becomes a float constant too,
+    so that `0.1 * k` comes out in the model's float type as in the JAX
+    package, not in torch's default float32. kwargs must be static.
     """
     if any(isinstance(a, Node) for a in args):
+        promote = any(isinstance(a, Node) and not a.dtype.is_floating_point for a in args)
         args = tuple(
-            a if isinstance(a, (Node, numbers.Number)) else as_node(a)
+            a if isinstance(a, Node) or (
+                isinstance(a, numbers.Number) and not (promote and isinstance(a, float)))
+            else as_node(a)
             for a in args
         )
         return DeterministicNode(fn, args, kwargs)
@@ -173,6 +179,19 @@ class Node:
     def __neg__(self):
         return apply(operator.neg, self)
 
+    # comparisons build symbolic masks; equality and hashing stay id-based
+    def __lt__(self, o):
+        return apply(operator.lt, self, o)
+
+    def __le__(self, o):
+        return apply(operator.le, self, o)
+
+    def __gt__(self, o):
+        return apply(operator.gt, self, o)
+
+    def __ge__(self, o):
+        return apply(operator.ge, self, o)
+
     def __hash__(self):
         return id(self)
 
@@ -234,15 +253,18 @@ class FreeRV(Node):
 
 class ObservedRV(Node):
     """An observed random variable; evaluates to its data (a ConstantNode)
-    unless the env overrides it (reference model/core.py:1984)."""
+    unless the env overrides it (reference model/core.py:1984). `mask`, a
+    boolean ConstantNode or None, marks the MISSING entries of imputed data,
+    whose logp terms are zeroed (pymc_tpu/graph.py ObservedRV.mask)."""
 
-    def __init__(self, name, dist, observed, model=None):
+    def __init__(self, name, dist, observed, model=None, mask=None):
         self.name = name
         self.dist = dist
         self.observed = as_node(observed)
         self.shape = self.observed.shape
         self.dtype = self.observed.dtype
         self.model = model
+        self.mask = None if mask is None else as_node(np.asarray(mask, dtype=bool))
 
     def _compute(self, env, memo):
         if self.name in env:
@@ -282,7 +304,8 @@ def _parents(node):
     if isinstance(node, FreeRV):
         return [p for p in node.dist.inputs() if isinstance(p, Node)]
     if isinstance(node, ObservedRV):
-        return [node.observed] + [p for p in node.dist.inputs() if isinstance(p, Node)]
+        mask = [] if node.mask is None else [node.mask]
+        return [node.observed] + mask + [p for p in node.dist.inputs() if isinstance(p, Node)]
     return []
 
 

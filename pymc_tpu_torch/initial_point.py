@@ -66,8 +66,10 @@ def make_initial_points_per_chain(model, logp_fn, chains, generator, device=None
                                   jitter_max_retries=10):
     """(chains, D) flat starting points on `device` (default: the card) in
     `dtype` (default: `floatX(device)`): the initial point plus U(-jitter,
-    jitter) noise, the first of `jitter_max_retries` candidates per chain
-    with a finite logp (the initial point itself if none is). jitter=0 (the
+    jitter) noise on the continuous entries (a discrete free RV keeps its
+    initial value, pymc_tpu/initial_point.py:106), the first of
+    `jitter_max_retries` candidates per chain with a finite logp (the
+    initial point itself if none is). jitter=0 (the
     adapt_diag and adapt_full inits) gives every chain the initial point.
     `overrides` are initvals, as `support_point_values` takes them. logp_fn
     maps a (N, D) batch of flat points to (N,) logps."""
@@ -87,7 +89,11 @@ def make_initial_points_per_chain(model, logp_fn, chains, generator, device=None
     u = torch.rand(
         (chains * R, base.shape[0]), generator=generator, device=device, dtype=dtype
     )
-    cands = base + jitter * (2.0 * u - 1.0)
+    continuous = torch.cat([
+        torch.full((size,), not rv.dist.is_discrete, device=device)
+        for rv, size in zip(model.free_RVs, info.sizes)
+    ])
+    cands = base + torch.where(continuous, jitter * (2.0 * u - 1.0), 0.0)
     finite = torch.isfinite(logp_fn(cands)).reshape(chains, R)
     first = torch.argmax(finite.to(torch.int8), dim=1)
     picked = cands.reshape(chains, R, -1)[torch.arange(chains, device=device), first]

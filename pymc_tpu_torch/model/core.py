@@ -18,9 +18,16 @@ import numpy as np
 import torch
 
 from ..blocking import RaveledInfo, unravel_vector
-from ..config import floatX, resolve_device
-from ..distributions.distribution import UNSET
+from ..config import floatX, intX, resolve_device
+from ..distributions.distribution import (
+    UNSET,
+    _PartialObservedJoint,
+    _PartialObservedSlots,
+    _scatter_positions,
+    scatter_missing,
+)
 from ..distributions.transforms import ChainedTransform
+from ..exceptions import ImputationWarning
 from ..ops.cuda_graph import GraphedFunction
 from ..graph import (
     ConstantNode,
@@ -156,15 +163,13 @@ class Model:
         """
         if observed is not None:
             # a discrete distribution keeps integer data (float data without
-            # NaN is cast to int64); continuous data is float64 at build time
-            # (reference pymc_tpu/model/core.py:508-515)
+            # NaN is cast to int64); continuous data is float64 at build time;
+            # data with NaN is imputed (pymc_tpu/model/core.py:508-517)
             arr = np.asarray(observed)
             if not (dist.is_discrete and np.issubdtype(arr.dtype, np.integer)):
-                if np.isnan(arr.astype(np.float64)).any():
-                    raise NotImplementedError(
-                        f"observed data of {name!r} has missing values; imputation "
-                        "is not ported"
-                    )
+                arr = arr.astype(np.float64)
+                if np.isnan(arr).any():
+                    return self._make_imputed(dist, name, arr, dims)
                 arr = arr.astype(np.int64 if dist.is_discrete else np.float64)
             np.broadcast_shapes(arr.shape, dist.shape)
             rv = ObservedRV(name, dist, arr, model=self)
@@ -179,6 +184,93 @@ class Model:
             if initval is not None:
                 self.rvs_to_initial_values[name] = initval
         return self.add_named_variable(rv, dims)
+
+    # --------------------------------------------------------- imputation
+    def _make_imputed(self, dist, name, arr, dims):
+        """Impute the NaN entries of observed data (pymc_tpu/model/core.py:
+        538; reference PartialObservedRV): they become the free variable
+        `{name}_unobserved`, the observed entries the likelihood
+        `{name}_observed`, and the two together the deterministic `{name}`."""
+        warnings.warn(
+            f"Data in {name} contains missing values and will be "
+            "automatically imputed from the sampling distribution.",
+            ImputationWarning,
+        )
+        mask = np.isnan(arr)
+        ev_n = dist.event_ndim
+        if ev_n == 0:
+            free, obs = self._split_imputed_univariate(dist, name, arr, mask)
+        else:
+            # separable when each event row is fully observed or fully
+            # missing: two independent variables over the batch rows;
+            # otherwise the joint density carries the slots
+            trimmed = mask[(...,) + (0,) * ev_n]
+            expanded = np.broadcast_to(
+                np.expand_dims(trimmed, axis=tuple(range(-ev_n, 0))), mask.shape
+            )
+            if np.array_equal(mask, expanded):
+                free, obs = self._split_imputed_separable(dist, name, arr, trimmed)
+            else:
+                free, obs = self._split_imputed_joint(dist, name, arr, mask)
+        flat_mask, pos = _scatter_positions(mask)
+        # observed entries from the data (or, in forward sampling, from the
+        # resampled observed variable), missing ones from the free variable
+        combined = DeterministicNode(
+            lambda f, full, m, ix: scatter_missing(full, f, m, ix), (free, obs, flat_mask, pos),
+            name=name,
+        )
+        self.deterministics.append(combined)
+        return self.add_named_variable(combined, dims)
+
+    def _add_imputed_pair(self, free, obs):
+        self.free_RVs.append(free)
+        self.add_named_variable(free)
+        self.observed_RVs.append(obs)
+        self.add_named_variable(obs)
+        return free, obs
+
+    def _split_imputed_univariate(self, dist, name, arr, mask):
+        missing_idx = np.nonzero(mask.ravel())[0]
+        gathered = dist._gathered((len(missing_idx),), missing_idx, arr.shape)
+        free = FreeRV(
+            f"{name}_unobserved", gathered, shape=gathered.shape, dtype=gathered.dtype,
+            transform=gathered.default_transform(), model=self,
+        )
+        obs = ObservedRV(f"{name}_observed", dist, _impute_fill(arr, mask, dist.is_discrete),
+                         model=self, mask=mask)
+        return self._add_imputed_pair(free, obs)
+
+    def _split_imputed_separable(self, dist, name, arr, row_mask):
+        """Each event row fully observed or fully missing: the missing rows
+        are a variable of their own, with the distribution's default
+        transform; the observed term masks whole rows."""
+        ev = tuple(dist.event_shape)
+        batch_shape = arr.shape[: arr.ndim - len(ev)]
+        missing_rows = np.nonzero(row_mask.ravel())[0]
+        gathered = dist._gathered((len(missing_rows),), missing_rows, batch_shape,
+                                  extra_event=ev)
+        free = FreeRV(
+            f"{name}_unobserved", gathered, shape=gathered.shape, dtype=gathered.dtype,
+            transform=gathered.default_transform(), model=self,
+        )
+        obs = ObservedRV(
+            f"{name}_observed", dist, _impute_fill(arr, np.isnan(arr), dist.is_discrete),
+            model=self, mask=row_mask,
+        )
+        return self._add_imputed_pair(free, obs)
+
+    def _split_imputed_joint(self, dist, name, arr, mask):
+        """The mask splits event rows, so the density does not separate: the
+        missing entries are transform-free slots of zero density, and the
+        observed term is the joint density of the value with the slots put
+        in (reference partial_observed_rv_logprob)."""
+        n_missing = int(mask.sum())
+        slots = _PartialObservedSlots.dist(dist, mask, shape=(n_missing,))
+        free = FreeRV(f"{name}_unobserved", slots, shape=(n_missing,), dtype=slots.dtype,
+                      transform=None, model=self)
+        joint = _PartialObservedJoint.dist(dist, mask, free.name, shape=arr.shape)
+        obs = ObservedRV(f"{name}_observed", joint, np.where(mask, 0.0, arr), model=self)
+        return self._add_imputed_pair(free, obs)
 
     # ------------------------------------------------------------- density
     def _roots(self):
@@ -222,6 +314,8 @@ class Model:
                 terms[rv.name] = lp
             for orv in observed_RVs:
                 lp = orv.dist.logp(orv._eval(env, memo), env, memo)
+                if orv.mask is not None:
+                    lp = torch.where(orv.mask._eval(env, memo), 0.0, lp)
                 terms[orv.name] = lp.sum()
             for pot in potentials:
                 terms[pot.name] = pot._eval(env, memo).sum()
@@ -282,27 +376,52 @@ class Model:
             for rv in self.free_RVs
         }
 
-    def logp_dlogp_fn(self, device=None, dtype=None, jacobian=True):
+    def _flat_logp(self, device, dtype, jacobian=True):
+        """fn(q (D,)) -> scalar joint logp of one flat unconstrained point;
+        a discrete free RV's entries, carried as floats in q, are rounded
+        to int64 (their gradient is 0)."""
+        info = self.raveled_info()
+        scalar_logp = self.logp_fn(device, dtype, jacobian=jacobian)
+        discrete = [rv.value_name for rv in self.discrete_value_vars]
+
+        def fn(q):
+            vals = unravel_vector(q, info)
+            for name in discrete:
+                vals[name] = torch.round(vals[name]).to(intX())
+            return scalar_logp(vals)
+
+        return fn
+
+    def logp_flat_fn(self, device=None, dtype=None):
+        """fn(q (N, D)) -> (logp (N,),) over flat unconstrained points,
+        discrete entries rounded: the density of the step methods
+        (step_methods/compound.py), replayed from a CUDA graph per input
+        shape on the card as `logp_dlogp_fn` is."""
+        batched = torch.func.vmap(self._flat_logp(device, dtype))
+        return GraphedFunction(lambda q: (batched(q),))
+
+    def logp_dlogp_fn(self, device=None, dtype=None, jacobian=True, round_discrete=False):
         """fn(q (C, D)) -> (logp (C,), grad (C, D)) over flat unconstrained
         points — the sampler-facing density (reference ValueGradFunction
         core.py:142); jacobian as in `logp_fn`. On the card a call replays
         a CUDA graph of the same kernels from the third call of each input
         shape on (ops/cuda_graph.py; `fn.fn` is the eager function): the
         samplers', VI's and MAP's loops call it thousands of times at one
-        shape. A discrete free RV raises:
-        the JAX package samples it with compound step methods, which this
-        port does not have yet."""
-        if self.discrete_value_vars:
+        shape. A discrete free RV raises: it has no gradient, and `sample`
+        routes such a model to compound step methods
+        (step_methods/compound.py), whose continuous blocks ask for
+        round_discrete=True: the discrete entries rounded, their gradient
+        0."""
+        if self.discrete_value_vars and not round_discrete:
             names = [rv.value_name for rv in self.discrete_value_vars]
             raise NotImplementedError(
                 f"Gradient-based samplers need continuous free variables only; "
-                f"found discrete {names}. They need compound step methods, "
-                "which pymc_tpu_torch does not have yet."
+                f"found discrete {names}. pymc_tpu_torch.sample samples such a model "
+                "with compound step methods (NUTS for the continuous block, a "
+                "Metropolis-family step for each discrete variable)."
             )
-        info = self.raveled_info()
-        scalar_logp = self.logp_fn(device, dtype, jacobian=jacobian)
         value_and_grad = torch.func.vmap(
-            torch.func.grad_and_value(lambda q: scalar_logp(unravel_vector(q, info)))
+            torch.func.grad_and_value(self._flat_logp(device, dtype, jacobian))
         )
 
         def fn(q):
@@ -314,7 +433,8 @@ class Model:
     def postprocess_fn(self, device=None, dtype=None):
         """fn(q (N, D)) -> {name: (N, *shape)}: constrained free RVs and the
         deterministics recomputed from flat draws (reference
-        sampling/jax.py:151-183 _postprocess_samples)."""
+        sampling/jax.py:151-183 _postprocess_samples). A discrete free RV,
+        carried as floats in q, comes out rounded, as int64."""
         info = self.raveled_info()
         placed = self.placed_constants(device, dtype)
         free_RVs = list(self.free_RVs)
@@ -326,6 +446,8 @@ class Model:
             env = {}
             for rv in free_RVs:
                 v = vals[rv.value_name]
+                if rv.dist.is_discrete:
+                    v = torch.round(v).to(intX())
                 env[rv.name] = rv.transform.backward(v, env, memo) if rv.transform else v
             out = dict(env)
             for det in deterministics:
@@ -376,6 +498,18 @@ def _resolve_transform(dist, name, transform, default_transform):
                 "vector transform (reference raises the same)."
             )
     return tr
+
+
+def _impute_fill(arr, mask, discrete):
+    """The data with its missing entries set to the observed mean (rounded,
+    as int64, for a discrete distribution): the masked terms are still
+    computed before they are zeroed, and an out-of-support fill would make
+    their gradient NaN (pymc_tpu/model/core.py:1122)."""
+    obs = arr[~mask]
+    fill = float(np.mean(obs)) if obs.size else 0.0
+    if discrete:
+        return np.where(mask, np.round(fill), arr).astype(np.int64)
+    return np.where(mask, fill, arr)
 
 
 def Deterministic(name, var, model=None, dims=None):

@@ -14,7 +14,11 @@ BASELINE config #5 (`suite.py::case_smc`), the bimodal mixture that
 `suite.py::case_mixture`, which it samples with NUTS. `best_model` is
 `suite.py::case_best`'s two-group Student-t comparison (BEST), and
 `hierarchical_binomial_model` the Beta-Binomial partial pooling of
-`examples/hierarchical_binomial.py`. Each builder takes the
+`examples/hierarchical_binomial.py`. `changepoint_model` is the structure
+of PyMC's coal-mining change-point case study at its published size, on
+synthetic counts, with two missing counts that are imputed: a discrete
+switchpoint and discrete imputed counts, which compound step methods
+sample. Each model function takes the
 package to build with (`pymc_tpu_torch` by default), so the reference
 package builds the same model from the same data. The radon GLM's builder
 is `bench.build_model`; its sampling arguments are here.
@@ -36,6 +40,8 @@ __all__ = [
     "mixture_model", "best_data", "best_model", "BEST_SAMPLE_KWARGS", "BEST_SMOKE_KWARGS",
     "BEST_SCALARS",
     "hierarchical_binomial_model", "BINOMIAL_SAMPLE_KWARGS", "BINOMIAL_SCALARS",
+    "changepoint_data", "changepoint_model", "changepoint_posterior", "CHANGEPOINT_SAMPLE_KWARGS",
+    "CHANGEPOINT_SCALARS",
 ]
 
 # bench.py's many-chain configuration (pooled mass and step, target_accept
@@ -417,3 +423,71 @@ def hierarchical_binomial_model(pm=None):
         theta = pm.Beta("theta", alpha=phi * kappa, beta=(1.0 - phi) * kappa, dims="player")
         pm.Binomial("y", n=at_bats, p=theta, observed=hits, dims="player")
     return model
+
+
+# the change-point model as chip_smoke.py phase 12a samples it: 64 chains,
+# tune 1000, draws 1000, automatic step assignment (NUTS on the rates,
+# Metropolis on the switchpoint and on the two imputed counts)
+CHANGEPOINT_SAMPLE_KWARGS = dict(chains=64, tune=1000, draws=1000, random_seed=0)
+# the scalars held to the reference; disasters_unobserved's two entries
+# are held as disasters_unobserved[0] and [1]
+CHANGEPOINT_SCALARS = ("early_rate", "late_rate", "switchpoint")
+# the published series' missing years (1890 and 1934 of 1851-1961)
+CHANGEPOINT_MISSING = (39, 83)
+
+
+def changepoint_data(seed=0):
+    """(years 0..110, counts): 111 Poisson counts drawn from `seed`, rate
+    3.0 in the first 40 years and 1.0 after, with the published series'
+    two missing years set to NaN."""
+    years = np.arange(111)
+    counts = np.random.default_rng(seed).poisson(np.where(years < 40, 3.0, 1.0)).astype(float)
+    counts[list(CHANGEPOINT_MISSING)] = np.nan
+    return years, counts
+
+
+def changepoint_model(pm=None):
+    """switchpoint ~ DiscreteUniform(0, 110); early_rate, late_rate ~
+    Exponential(1); disasters ~ Poisson(switch(switchpoint >= years,
+    early_rate, late_rate)) on `changepoint_data()`, whose two missing
+    counts become the free variable disasters_unobserved (PyMC's coal-mining
+    case study, at its size)."""
+    if pm is None:
+        import pymc_tpu_torch as pm
+    years, counts = changepoint_data()
+    with pm.Model() as model:
+        switchpoint = pm.DiscreteUniform("switchpoint", lower=0, upper=110)
+        early_rate = pm.Exponential("early_rate", 1.0)
+        late_rate = pm.Exponential("late_rate", 1.0)
+        rate = pm.math.switch(switchpoint >= years, early_rate, late_rate)
+        pm.Poisson("disasters", rate, observed=counts)
+    return model
+
+
+def changepoint_posterior():
+    """The change-point model's exact posterior means {name: mean}: the
+    rates are conjugate (Gamma(1 + sum, 1 + n) for each segment), so the
+    switchpoint's posterior is the product of two Gamma-Poisson marginal
+    likelihoods, and each imputed count's mean is its year's expected rate."""
+    from scipy.special import gammaln, logsumexp
+
+    years, counts = changepoint_data()
+    seen = ~np.isnan(counts)
+    c = np.where(seen, counts, 0.0)
+    log_w, early, late = [], [], []
+    for s in range(111):
+        parts = []
+        for segment in (years <= s, years > s):
+            k, n = c[segment & seen].sum(), (segment & seen).sum()
+            parts.append((1.0 + k, 1.0 + n))
+        # log of the marginal likelihood of the observed counts given s
+        log_w.append(sum(gammaln(a) - a * np.log(b) for a, b in parts))
+        early.append(parts[0][0] / parts[0][1])
+        late.append(parts[1][0] / parts[1][1])
+    w = np.exp(np.array(log_w) - logsumexp(log_w))
+    early, late, s = np.array(early), np.array(late), np.arange(111)
+    out = {"early_rate": float(w @ early), "late_rate": float(w @ late),
+           "switchpoint": float(w @ s)}
+    for i, year in enumerate(CHANGEPOINT_MISSING):
+        out[f"disasters_unobserved[{i}]"] = float(w @ np.where(s >= year, early, late))
+    return out

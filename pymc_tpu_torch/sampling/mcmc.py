@@ -15,9 +15,12 @@ kernels (full_mass.py). Draws and stats stay on the device until the end;
 the draws are postprocessed there in row chunks, and only the variables
 `var_names` names (default: all) cross to the host.
 
+A model with a discrete free variable, or a call with `step=`, goes to
+compound step methods (step_methods/compound.py::sample_with_steps), as
+`pymc_tpu/sampling/mcmc.py:141-160` routes it.
+
 Left out against the JAX package, each raising NotImplementedError with
-its ROADMAP item: compound steps (`step=`, discrete free variables),
-warmup groups (`discard_tuned_samples=False`), callbacks, traces and
+its ROADMAP item: warmup groups (`discard_tuned_samples=False`), callbacks, traces and
 resume, postprocessing chunks, meshes, the warning stat and the
 log-likelihood group; and the TPU-only chunk compilation.
 """
@@ -147,7 +150,6 @@ SUPPORTED_INITS = frozenset({
 # the arguments pymc_tpu.sample honours that the port has not ported yet,
 # with the ROADMAP item each waits for
 _WAITS_FOR = {
-    "step": "the ROADMAP item on step methods (compound stepping)",
     "discard_tuned_samples": "the ROADMAP item on the rest of sample (warmup groups)",
     "callback": "the ROADMAP item on the rest of sample",
     "trace": "the ROADMAP item on the rest of sample (traces and resume)",
@@ -310,7 +312,14 @@ def sample(
     progressbar, cores, nuts_sampler, chain_method="vectorized",
         idata_kwargs={"log_likelihood": False} : accepted, as
         `pymc_tpu.sample` accepts them; they do nothing on one device.
-    step, discard_tuned_samples=False, callback, trace, resume, chunk_size,
+    step : a step method or CompoundStep (or a list of them); the free
+        variables they leave go to NUTS, or to a Gibbs or Metropolis step
+        where discrete. A model with a discrete free variable goes this
+        way without `step=` (step_methods/compound.py::sample_with_steps,
+        which takes draws, tune, chains, random_seed, initvals,
+        jitter_max_retries, var_names, device, compute_convergence_checks
+        and return_inferencedata; the NUTS-only arguments do not apply).
+    discard_tuned_samples=False, callback, trace, resume, chunk_size,
         postprocessing_chunks, mesh, keep_warning_stat, another
         chain_method, idata_kwargs asking for more : not ported yet; each
         raises NotImplementedError naming what it waits for.
@@ -338,7 +347,7 @@ def sample(
     if draws < 1:
         raise ValueError("draws must be >= 1")
     _refuse_unported(
-        step=step is not None, discard_tuned_samples=not discard_tuned_samples,
+        discard_tuned_samples=not discard_tuned_samples,
         callback=callback is not None, trace=trace is not None, resume=bool(resume),
         chunk_size=chunk_size is not None, postprocessing_chunks=postprocessing_chunks is not None,
         mesh=mesh is not None, keep_warning_stat=bool(keep_warning_stat),
@@ -346,6 +355,15 @@ def sample(
         chain_method=chain_method != "vectorized",
     )
     model = modelcontext(model)
+    if step is not None or model.discrete_value_vars:
+        from ..step_methods.compound import sample_with_steps
+
+        return sample_with_steps(
+            draws=draws, tune=tune, chains=chains, model=model, step=step,
+            random_seed=random_seed, compute_convergence_checks=compute_convergence_checks,
+            return_inferencedata=return_inferencedata, initvals=initvals,
+            jitter_max_retries=jitter_max_retries, var_names=var_names, device=device,
+        )
     init = _resolve_init(init)
     for name, value in (("mass_adapt", mass_adapt), ("step_adapt", step_adapt)):
         if value not in ("per_chain", "pooled"):

@@ -115,20 +115,35 @@ def test_continuous_observed_data_stays_float64():
     assert m.observed_RVs[0].observed.value.dtype == torch.float64
 
 
-def test_discrete_observed_with_nan_raises():
-    with pmt.Model():
-        with pytest.raises(NotImplementedError, match="imputation"):
-            pmt.Bernoulli("y", p=0.5, observed=np.array([0.0, np.nan]))
+def test_discrete_observed_with_nan_imputes():
+    """Missing discrete data becomes the discrete free variable
+    y_unobserved, as in pymc_tpu (tests/test_torch_imputation.py holds the
+    densities to it)."""
+    from pymc_tpu_torch.exceptions import ImputationWarning
+
+    with pmt.Model() as m:
+        with pytest.warns(ImputationWarning, match="missing values"):
+            pmt.Bernoulli("y", p=0.5, observed=np.array([0.0, np.nan, 1.0]))
+    assert [rv.name for rv in m.free_RVs] == ["y_unobserved"]
+    assert m.named_vars["y_unobserved"].dtype == torch.int64
+    assert [rv.name for rv in m.observed_RVs] == ["y_observed"]
+    # the fill: the observed mean 0.5, rounded half to even as numpy does
+    assert m.observed_RVs[0].observed.value.tolist() == [0, 0, 1]
 
 
-def test_discrete_free_variable_raises():
+def test_discrete_free_variable_routes_to_compound():
     with pmt.Model() as m:
         pmt.Normal("z", 0.0, 1.0)
         pmt.Bernoulli("b", p=0.3)
     assert [rv.name for rv in m.discrete_value_vars] == ["b"]
     assert m.named_vars["b"].dtype == torch.int64
     with pytest.raises(NotImplementedError, match="compound step"):
-        pmt.sample(model=m, draws=2, tune=2, chains=2, device="cpu")
+        m.logp_dlogp_fn(device="cpu")
+    idata = pmt.sample(model=m, draws=4, tune=2, chains=2, device="cpu",
+                       compute_convergence_checks=False)
+    assert idata.posterior.attrs["stepper"] == (
+        "CompoundStep([NUTS(['z']), BinaryGibbsMetropolis(['b'])])")
+    assert idata.posterior["b"].values.dtype == np.int64
 
 
 N_GROUPS, N_OBS = 20, 200

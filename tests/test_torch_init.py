@@ -88,7 +88,7 @@ def test_unknown_init_raises_the_jax_packages_error():
 
 
 @pytest.mark.parametrize("kwargs", [
-    {"step": object()}, {"discard_tuned_samples": False}, {"callback": print},
+    {"discard_tuned_samples": False}, {"callback": print},
     {"trace": object()}, {"resume": True}, {"chunk_size": 10}, {"postprocessing_chunks": 4},
     {"mesh": object()}, {"keep_warning_stat": True}, {"chain_method": "parallel"},
     {"idata_kwargs": {"log_likelihood": True}},
@@ -96,6 +96,17 @@ def test_unknown_init_raises_the_jax_packages_error():
 def test_arguments_not_ported_raise(kwargs):
     with pytest.raises(NotImplementedError, match=next(iter(kwargs))):
         pmt.sample(draws=2, tune=2, chains=1, model=gaussian(pmt), device="cpu", **kwargs)
+
+
+def test_step_samples():
+    """step= is ported: it goes to compound sampling (step_methods/)."""
+    model = gaussian(pmt)
+    idata = pmt.sample(draws=30, tune=30, chains=3, model=model, device="cpu", random_seed=0,
+                       step=pmt.Metropolis(model=model), compute_convergence_checks=False)
+    assert idata.posterior.attrs["stepper"].startswith("CompoundStep([Metropolis(")
+    assert set(idata.sample_stats.keys()) == {"accept_rate", "scaling", "accepted"}
+    for name in idata.posterior.keys():
+        assert idata.posterior[name].shape[:2] == (3, 30)
 
 
 def test_unknown_keyword_raises():
