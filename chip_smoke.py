@@ -138,7 +138,7 @@ Phases, in order; any failure ends the script with a non-zero exit:
                 StudentT with lam=, Uniform, Exponential; two interval,
                 one log and two real free parameters) at the suite's
                 accelerator setting, 512 chains, tune 1000, pooled mass,
-                seed 0, draws cut from 5000 to 2000
+                seed 0, draws cut from 5000 to 1000
                 (models.BEST_SMOKE_KWARGS); 11b. the
                 hierarchical binomial (examples/hierarchical_binomial.py:
                 Beta, Binomial, Uniform, Exponential and pm.math.exp; 18
@@ -150,6 +150,27 @@ Phases, in order; any failure ends the script with a non-zero exit:
                 tests/data/torch_best_reference.json and
                 torch_binomial_reference.json (pymc_tpu on the CPU); prints
                 min-ESS/s, grad-evals/s, the walls and the leapfrogs a draw
+  12. steps   — step methods and compound sampling: 12a. the change-point
+                model (NUTS + Metropolis, two imputed counts) against its
+                exact posterior; 12b. step=pm.HamiltonianMC() on the radon
+                GLM; 12c. the other steppers on known posteriors
+  13. results — the rest of `sample` and the results layer: 13a. the radon
+                GLM at phase 5's configuration with a FileTrace in a
+                temporary directory, chunk_size=32, the warmup kept and
+                idata_kwargs={"log_likelihood": True}, stopped by a callback
+                that raises KeyboardInterrupt at 64 draws (64 draws and a
+                (64, 200) warmup group), then resumed to 128: the posterior
+                must be phase 5's draw for draw, phase 5's launch identities
+                must hold in each run, the (64, 128, 919) log-likelihood
+                must match the port's float64 CPU recomputation, loo and
+                waic must be finite (the Pareto-k counts are printed), hdi
+                and R-hat must agree with a plain computation and with
+                stats.convergence, and return_inferencedata=False must give
+                a MultiTrace whose get_values is the posterior; 13b.
+                compute_log_likelihood over phase 6's 12,800 marginal-GP
+                draws on the card: one Cholesky launch a chunk of
+                sampling.forward.POSTERIOR_CHUNK draws, and the values of
+                the CPU in float64
 
 Phase 3 also checks and times the Cholesky at SMC's (4, 3) stack, at
 phase 9's shapes and at phase 10's (1, 175) and (1, 150), and its jvp under
@@ -226,6 +247,19 @@ SMC_Z = 5.0
 # (tune 300) 1.70 to 1.80; 1.55 lies between. Its mean is held to the
 # reference within 5 combined MCSE like the others'.
 STRESS_RHAT_LIMIT = {"mu_a": 1.05, "sd_a": 1.05, "mu_b": 1.05, "sd_b": 1.55}
+# phase 13a: the callback stops the radon run after this many draws (two
+# chunks of 32); the card's float32 pointwise log-likelihood is held within
+# this much of the CPU's float64 one, relative to max(1, |CPU|)
+RESULTS_STOP_AT = 64
+RESULTS_LL_TOL = 1e-4
+# phase 13b: each draw's GP log-likelihood, relative, within RESULTS_GP_RTOL
+# (phase 4's bound at 64 random points) or this many times float32's own
+# largest error on the same draws, whichever is larger: over phase 6's
+# 12,800 draws the largest error on the card was 1.103e-4, and in float32 on
+# the CPU over 3,200 draws like them 7.3e-5 (median 3.0e-6): the tail of
+# float32's rounding, not a fault of the kernel
+RESULTS_GP_RTOL = 1e-4
+RESULTS_GP_FLOAT32 = 4.0
 KERNEL_SOURCE = "pymc_tpu_torch/csrc/leapfrog.cu"
 CHOL_SOURCE = "pymc_tpu_torch/csrc/cholesky.cu"
 # edges of the leapfrog kernels' range; the sampled models' own (chains, D)
@@ -2186,6 +2220,188 @@ def run_init_family(card, radon_idata):
     return paths
 
 
+def pareto_k_counts(k):
+    """PSIS's Pareto-k diagnostic in the usual bands: good, ok, bad, very bad."""
+    k = np.asarray(k)
+    return {"k<=0.5": int((k <= 0.5).sum()), "0.5<k<=0.7": int(((k > 0.5) & (k <= 0.7)).sum()),
+            "0.7<k<=1": int(((k > 0.7) & (k <= 1.0)).sum()), "k>1": int((k > 1.0).sum())}
+
+
+def hdi_brute_force(x, prob=0.94):
+    """The narrowest window of floor(prob n) + 1 sorted draws, by a plain loop."""
+    s = np.sort(x.ravel())
+    m = max(int(np.floor(prob * s.size)), 1)
+    widths = [s[i + m] - s[i] for i in range(s.size - m)]
+    i = int(np.argmin(widths))
+    return s[i], s[i + m]
+
+
+def pointwise_err(label, got, ref, tol):
+    """max |got - ref| / max(1, |ref|) over every element, which must be <
+    tol; returns it."""
+    err = float((np.abs(got.astype(np.float64) - ref) / np.maximum(1.0, np.abs(ref))).max())
+    print(f"{label}: max err {err:.3e} (|card - CPU float64| / max(1, |CPU|), tol {tol:g})")
+    if not (np.isfinite(got).all() and err < tol):
+        raise AssertionError(f"{label}: the card's values disagree with the CPU's")
+    return err
+
+
+def run_results_radon(card, radon_idata):
+    """Phase 13a: the radon GLM at phase 5's configuration with a FileTrace,
+    chunks of 32, the warmup kept and the log-likelihood group, stopped by
+    its callback at 64 draws and resumed to 128; the resumed posterior must
+    be phase 5's (`radon_idata`) draw for draw. Returns {kernel: launches}
+    of both runs."""
+    import tempfile
+
+    import pymc_tpu_torch as pm
+    from pymc_tpu_torch.models import RADON_SAMPLE_KWARGS
+    from pymc_tpu_torch.stats import convergence
+
+    phase("13a results layer: radon stopped at 64 draws, resumed, log-likelihood, loo")
+    config = dict(RADON_SAMPLE_KWARGS, chunk_size=32, idata_kwargs={"log_likelihood": True},
+                  compute_convergence_checks=False, device="cuda")
+    C, S, T = config["chains"], config["draws"], config["tune"]
+    model = bench_module().build_model(pm)
+    calls = []
+
+    def stop(draws_done, draws, chains, stats):
+        calls.append(draws_done)
+        if draws_done >= RESULTS_STOP_AT:
+            raise KeyboardInterrupt
+
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        part, launches_part = counted(lambda: pm.sample(
+            model=model, trace=pm.FileTrace(tmp), callback=stop, discard_tuned_samples=False,
+            **config))
+        t1 = time.perf_counter()
+        resumed, launches_resumed = counted(lambda: pm.sample(
+            model=model, trace=pm.FileTrace(tmp), resume=True, **config))
+        t2 = time.perf_counter()
+        trace = pm.sample(model=model, trace=pm.FileTrace(tmp), resume=True,
+                          return_inferencedata=False, **config)
+        t3 = time.perf_counter()
+        chunks = pm.FileTrace(tmp).n_chunks
+    print(f"13a walls: stopped run {t1 - t0:.1f} s (callback at {calls}), resumed run "
+          f"{t2 - t1:.1f} s, MultiTrace from the trace {t3 - t2:.1f} s; chunks on disk {chunks}"
+          f"  [{card}]")
+    shapes = {n: part.posterior[n].shape[:2] for n in part.posterior.keys()}
+    warm = {n: part.warmup_posterior[n].shape[:2] for n in part.warmup_posterior.keys()}
+    if set(shapes.values()) != {(C, RESULTS_STOP_AT)} or set(warm.values()) != {(C, T)}:
+        raise AssertionError(f"13a stopped run: posterior {shapes}, warmup {warm}")
+    if part.warmup_sample_stats["step_size"].shape != (C, T):
+        raise AssertionError("13a: warmup_sample_stats has the wrong shape")
+    check_launch_identities("13a stopped run", part.posterior.attrs, launches_part)
+    check_launch_identities("13a resumed run", resumed.posterior.attrs, launches_resumed)
+
+    ref = radon_idata.posterior
+    for name in ref.keys():
+        if not np.array_equal(resumed.posterior[name].values, ref[name].values):
+            diff = float(np.abs(resumed.posterior[name].values - ref[name].values).max())
+            raise AssertionError(f"13a: resumed {name} differs from phase 5's draws "
+                                 f"(max abs diff {diff:.3e})")
+    print(f"13a: the resumed posterior is phase 5's draw for draw ({C} x {S}, "
+          f"{len(ref.keys())} variables)")
+
+    ll = resumed.log_likelihood["y"].values
+    if ll.shape != (C, S, 919):
+        raise AssertionError(f"13a: log_likelihood is {ll.shape}, expected {(C, S, 919)}")
+    tl = time.perf_counter()
+    pm.compute_log_likelihood(resumed, model=model, extend_inferencedata=False, device="cuda")
+    tl = time.perf_counter() - tl
+    cpu = pm.compute_log_likelihood(resumed, model=model, extend_inferencedata=False,
+                                    device="cpu")
+    pointwise_err("13a log_likelihood on the card", ll, cpu["y"].values, RESULTS_LL_TOL)
+    tc = time.perf_counter()
+    loo, waic = pm.loo(resumed), pm.waic(resumed)
+    tc = time.perf_counter() - tc
+    print(f"13a: loo elpd {loo.elpd:.3f} (se {loo.se:.3f}, p {loo.p:.3f}); waic elpd "
+          f"{waic.elpd:.3f} (se {waic.se:.3f}, p {waic.p:.3f}); Pareto k "
+          f"{pareto_k_counts(loo.pareto_k)}; log-likelihood on the card {tl:.3f} s, "
+          f"loo + waic on the host {tc:.3f} s")
+    if not np.isfinite([loo.elpd, loo.se, loo.p, waic.elpd, waic.se, waic.p]).all():
+        raise AssertionError("13a: loo or waic is not finite")
+
+    for name in SCALARS:
+        x = resumed.posterior[name].values
+        lo, hi = pm.hdi(x)
+        r = float(pm.stats.rhat(x))
+        if (lo, hi) != hdi_brute_force(x) or r != float(convergence.rhat(ref[name].values)):
+            raise AssertionError(f"13a: {name}'s hdi or R-hat disagrees")
+        if not r < 1.05:
+            raise AssertionError(f"13a: {name} R-hat {r:.4f} >= 1.05")
+        print(f"13a {name}: 94% hdi [{lo:.5f}, {hi:.5f}], R-hat {r:.4f}")
+    if not isinstance(trace, pm.MultiTrace) or len(trace) != S or trace.nchains != C:
+        raise AssertionError("13a: return_inferencedata=False did not give the MultiTrace")
+    for name in ref.keys():
+        if not np.array_equal(trace.get_values(name), np.concatenate(list(ref[name].values))):
+            raise AssertionError(f"13a: MultiTrace.get_values({name!r}) != the posterior")
+    return {k: launches_part[k] + launches_resumed[k] for k in launches_part}
+
+
+def log_likelihood_of(model, env, placed):
+    """The summed log-likelihood of `model`'s observed variables at one
+    draw `env`, with its constants `placed`."""
+    memo = dict(placed)
+    return sum(orv.dist.logp(orv._eval(env, memo), env, memo).sum()
+               for orv in model.observed_RVs)
+
+
+def run_results_gp(card, gp_idata):
+    """Phase 13b: compute_log_likelihood over phase 6's marginal-GP draws on
+    the card: one Cholesky launch a chunk of POSTERIOR_CHUNK draws, no other
+    kernel, and each draw's logp as close to the CPU's in float64 as
+    float32 can be: within RESULTS_GP_FLOAT32 times the largest relative
+    error of the same draws in float32 on the CPU, or RESULTS_GP_RTOL.
+    Returns {kernel: launches}."""
+    import pymc_tpu_torch as pm
+    from pymc_tpu_torch.models import GP_SCALARS, gp_marginal_model
+    from pymc_tpu_torch.sampling.forward import (
+        POSTERIOR_CHUNK, map_over_posterior, posterior_rows,
+    )
+
+    phase("13b log-likelihood of phase 6's marginal-GP posterior")
+    model = gp_marginal_model(150)
+    placed32 = model.placed_constants("cpu", torch.float32)
+    C, S = gp_idata.posterior["ls"].shape[:2]
+    t0 = time.perf_counter()
+    ll, launches = counted(lambda: pm.compute_log_likelihood(
+        gp_idata, model=model, extend_inferencedata=False, device="cuda"))
+    wall = time.perf_counter() - t0
+    chunks = math.ceil(C * S / POSTERIOR_CHUNK)
+    expect = {"kick_drift": 0, "final_kick": 0, "nuts_leaf": 0, "cholesky": chunks}
+    print(f"13b: {C * S} draws in {chunks} chunks of {POSTERIOR_CHUNK}, wall {wall:.3f} s, "
+          f"launches {launches}  [{card}]")
+    if launches != expect:
+        raise AssertionError(f"13b launches {launches} != expected {expect}")
+    got = ll["y"].values
+    ref = pm.compute_log_likelihood(gp_idata, model=model, extend_inferencedata=False,
+                                    device="cpu")["y"].values
+    if got.shape != (C, S):
+        raise AssertionError(f"13b: log_likelihood is {got.shape}, expected {(C, S)}")
+    rel = np.abs(got - ref) / np.abs(ref)
+    # float32's own rounding on these draws: the same density in float32 on
+    # the CPU (LAPACK-free plain Cholesky), against the same float64 values
+    cpu32 = map_over_posterior(lambda env: log_likelihood_of(model, env, placed32),
+                               posterior_rows(gp_idata.posterior, GP_SCALARS)[0], (C, S),
+                               "cpu", dtype=torch.float32)
+    rel32 = float((np.abs(cpu32 - ref) / np.abs(ref)).max())
+    tol = max(RESULTS_GP_RTOL, RESULTS_GP_FLOAT32 * rel32)
+    print(f"13b: rel err against the CPU in float64: max {float(rel.max()):.3e}, 99th "
+          f"percentile {float(np.quantile(rel, 0.99)):.3e}, median {float(np.median(rel)):.3e};"
+          f" the CPU in float32: max {rel32:.3e}; tol {tol:.3e}")
+    if not (np.isfinite(got).all() and float(rel.max()) < tol):
+        raise AssertionError("13b: the card's GP log-likelihood disagrees with the CPU's")
+    return launches
+
+
+def run_results(card, radon_idata, gp_idata):
+    """Phase 13: the results layer; returns {path: {kernel: launches}}."""
+    return {"results radon": run_results_radon(card, radon_idata),
+            "results GP": run_results_gp(card, gp_idata)}
+
+
 def pair_records(launches, errs, times, shape):
     """The pair's records of the `kernels` line, timed at `shape`."""
     records = []
@@ -2253,7 +2469,7 @@ def main():
              "SMC": smc_launches, "GP predictive": run_gp_predictive(card, gp_idata),
              "latent GP": latent_launches,
              **run_init_family(card, idata), **run_distribution_models(card),
-             **run_step_methods(card)}
+             **run_step_methods(card), **run_results(card, idata, gp_idata)}
     total = {k: sum(p[k] for p in paths.values()) for k in launches}
     kernels = kernel_records(total, errs, times, leaf, chol_err, chol_times)
     print("launches: " + "; ".join(f"{name} {p}" for name, p in paths.items()))

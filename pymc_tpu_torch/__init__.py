@@ -22,7 +22,13 @@ zero-inflated and hurdle mixtures), the log-odds, interval, log-expm1 and
 circular transforms, and `pm.math`. Step methods (NUTS, HamiltonianMC,
 Metropolis, the Gibbs and differential-evolution steps, Slice) and compound
 sampling, which `sample` uses for models with discrete free variables or
-when `step=` is given, and the imputation of missing observed values. The package
+when `step=` is given, and the imputation of missing observed values. The
+rest of `sample` (warmup groups, callbacks, chunked FileTrace checkpoints
+and resume, MultiTrace) and the results layer: pointwise log densities,
+`summary`/`hdi`, `loo`/`waic`/`compare`, the functional API (`logp`,
+`logcdf`, `logccdf`, `draw`) and functions of a posterior
+(`compute_deterministics`, `vectorize_over_posterior`,
+`compile_forward_sampling_function`). The package
 imports torch and never jax; kernels are built at first use, never at
 import. Entry points run on the card unless `device="cpu"` is asked for.
 
@@ -35,15 +41,24 @@ import. Entry points run on the card unless `device="cpu"` is asked for.
     idata = pm.sample(draws=300, tune=300, chains=64, mass_adapt="pooled")
 """
 
-from . import distributions, gp, math, step_methods, tuning, variational
+from . import backends, distributions, gp, math, stats, step_methods, tuning, variational
+from .backends import FileTrace, InferenceData, MultiTrace
+from .backends.arviz import predictions_to_inference_data, to_inference_data
+from .backends.report import SamplerReport
 from .distributions import *  # noqa: F401,F403
 from .distributions import __all__ as _dist_all
 from .func_utils import find_constrained_prior
+from .functions import draw, icdf, logccdf, logcdf, logp
 from .model import Deterministic, Model, Potential
-from .sampling.forward import sample_posterior_predictive, sample_prior_predictive
+from .sampling.forward import (
+    compile_forward_sampling_function, compute_deterministics, sample_posterior_predictive,
+    sample_prior_predictive, vectorize_over_posterior,
+)
 from .sampling.mcmc import init_nuts, sample
 from .smc.sampling import sample_smc
-from .stats.convergence import ess, rhat
+from .stats import (
+    compare, compute_log_likelihood, compute_log_prior, ess, hdi, loo, rhat, summary, waic,
+)
 from .step_methods import (
     NUTS, BinaryGibbsMetropolis, BinaryMetropolis, CategoricalGibbsMetropolis, CompoundStep,
     DEMetropolis, DEMetropolisZ, HamiltonianMC, Metropolis, Slice,
@@ -69,4 +84,9 @@ __all__ = [
     "apply_nesterov_momentum", "norm_constraint", "total_norm_constraint", "step_methods",
     "NUTS", "HamiltonianMC", "Metropolis", "BinaryMetropolis", "BinaryGibbsMetropolis",
     "CategoricalGibbsMetropolis", "DEMetropolis", "DEMetropolisZ", "Slice", "CompoundStep",
+    "backends", "stats", "InferenceData", "MultiTrace", "SamplerReport", "FileTrace",
+    "to_inference_data", "predictions_to_inference_data", "logp", "logcdf", "logccdf", "icdf",
+    "draw", "compute_deterministics", "vectorize_over_posterior",
+    "compile_forward_sampling_function", "compute_log_likelihood", "compute_log_prior",
+    "summary", "hdi", "loo", "waic", "compare",
 ]

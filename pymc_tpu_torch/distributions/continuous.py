@@ -185,6 +185,9 @@ class Normal(Continuous):
     def _logcdf(self, value, mu, sigma):
         return check_parameters(normal_lcdf(mu, sigma, value), sigma > 0)
 
+    def _logccdf(self, value, mu, sigma):
+        return check_parameters(normal_lccdf(mu, sigma, value), sigma > 0)
+
     def _sample(self, generator, shape, mu, sigma):
         return mu + sigma * standard_normal(generator, shape, mu)
 
@@ -455,6 +458,9 @@ class Exponential(Continuous):
         res = log1mexp(-lam * torch.clamp(value, min=0.0))
         res = torch.where(value >= 0, res, -torch.inf)
         return check_parameters(res, lam > 0)
+
+    def _logccdf(self, value, lam):
+        return check_parameters(-lam * torch.clamp(value, min=0.0), lam > 0)
 
     def _sample(self, generator, shape, lam):
         return standard_exponential(generator, shape, lam) / lam
@@ -878,6 +884,10 @@ class Weibull(Continuous):
         res = log1mexp(-(z**alpha))
         res = torch.where(value >= 0, res, -torch.inf)
         return check_parameters(res, alpha > 0, beta > 0)
+
+    def _logccdf(self, value, alpha, beta):
+        z = torch.clamp(value, min=0.0) / beta
+        return check_parameters(-(z**alpha), alpha > 0, beta > 0)
 
     def _sample(self, generator, shape, alpha, beta):
         return beta * standard_exponential(generator, shape, alpha) ** (1.0 / alpha)

@@ -24,6 +24,7 @@ import torch
 from ..config import intX
 from ..graph import Node, apply, as_node, evaluate
 from . import transforms as tr
+from .dist_math import log1mexp
 
 __all__ = ["Distribution", "Continuous", "Discrete", "UNSET"]
 
@@ -206,11 +207,26 @@ class Distribution:
     def _logcdf(self, value, *params, **aux):
         raise NotImplementedError(f"logcdf not implemented for {type(self).__name__}")
 
+    def logccdf(self, value, env=None, memo=None):
+        """Elementwise log of the survival function at `value`: the class's
+        `_logccdf` where it has one (stable in the upper tail: Normal,
+        Exponential, Weibull), else log1mexp of `logcdf`
+        (`pymc_tpu/distributions/distribution.py:371-399`)."""
+        memo = {} if memo is None else memo
+        params = self.resolve_params(env, memo)
+        try:
+            return self._logccdf(self._cast_value(value, params), *params)
+        except NotImplementedError:
+            return log1mexp(self.logcdf(value, env, memo))
+
+    def _logccdf(self, value, *params):
+        raise NotImplementedError
+
     def icdf(self, q, env=None, memo=None):
-        """The quantile function: not ported yet (ROADMAP.md §1, item 7)."""
+        """The quantile function: not ported yet (ROADMAP.md §1, distribution breadth)."""
         raise NotImplementedError(
-            f"icdf of {type(self).__name__} is not ported yet (ROADMAP.md §1, item 7: "
-            "_icdf and icdf_bisection)"
+            f"icdf of {type(self).__name__} is not ported yet (ROADMAP.md §1, the item on "
+            "distribution breadth: _icdf and icdf_bisection)"
         )
 
     def sample(self, generator, sample_shape=(), env=None, memo=None):

@@ -1,14 +1,22 @@
-"""Forward sampling: prior and posterior predictive.
+"""Forward sampling: prior and posterior predictive, and functions of a
+posterior.
 
 Counterpart of `pymc_tpu/sampling/forward.py` (`_generative_fn` :46-110,
 `sample_prior_predictive` :138-168, `sample_posterior_predictive`
-:171-357; reference pymc/sampling/forward.py:485, :607 and the volatility
-analysis of compile_forward_sampling_function, :262). One generative pass
+:171-357, `compute_deterministics` :360, `vectorize_over_posterior` :403,
+`compile_forward_sampling_function` :524; reference
+pymc/sampling/forward.py:485, :607 and the volatility analysis of
+compile_forward_sampling_function, :262). One generative pass
 over the model's graph in registration order, mapped over the draws with
 `torch.func.vmap(..., randomness="different")`: every draw gets its own
 random numbers from the one generator, and `cholesky_batched`'s vmap rule
 factors a matrix of every draw in one launch. The pass computes only what
 the requested variables need, and nothing above a value the trace gives.
+
+A function of every posterior draw (deterministics, log densities,
+`vectorize_over_posterior`) is mapped over the flattened draws with
+`torch.func.vmap` on the device, POSTERIOR_CHUNK rows at a time, where the
+JAX package maps all C·S draws at once.
 """
 
 from __future__ import annotations
@@ -19,15 +27,22 @@ import warnings
 import numpy as np
 import torch
 
-from ..backends.arviz import to_inference_data
+from ..backends.arviz import dataset_from_draws, to_inference_data
 from ..config import floatX, resolve_device
 from ..exceptions import ImplicitFreezeWarning
-from ..graph import ObservedRV, ancestors, evaluate
+from ..graph import FreeRV, ObservedRV, _parents, ancestors, evaluate, place_constants
 from ..model.core import modelcontext
 
-__all__ = ["sample_prior_predictive", "sample_posterior_predictive"]
+__all__ = ["sample_prior_predictive", "sample_posterior_predictive", "compute_deterministics",
+           "vectorize_over_posterior", "compile_forward_sampling_function", "draw_rv",
+           "rv_order", "posterior_rows", "map_over_posterior"]
 
 _log = logging.getLogger("pymc_tpu_torch")
+
+# rows of a flattened posterior evaluated at once on the device: a density
+# that builds a matrix a draw (the marginal GP's (150, 150) covariance) holds
+# 4096 of them, 369 MB in float32
+POSTERIOR_CHUNK = 4096
 
 
 def _generative_fn(model, device=None, dtype=None, given_names=(), given_det_names=(),
@@ -71,19 +86,8 @@ def _generative_fn(model, device=None, dtype=None, given_names=(), given_det_nam
         for det in given_dets:
             memo[id(det)] = env[det.name] = out[det.name] = given[det.name]
         for free, rv in plan:
-            if free:
-                env[rv.name] = (
-                    given[rv.name] if rv.name in given
-                    else rv.dist.sample(generator, (), env, memo)
-                )
-            else:
-                # an observed RV is drawn at its data's shape
-                target = tuple(rv.shape)
-                n = len(rv.dist.shape)
-                extra = target[: len(target) - n] if n <= len(target) else ()
-                env[rv.name] = torch.broadcast_to(
-                    rv.dist.sample(generator, extra, env, memo), target
-                )
+            env[rv.name] = (given[rv.name] if free and rv.name in given
+                            else draw_rv(rv, generator, env, memo))
             out[rv.name] = env[rv.name]
         for det in deterministics:
             if det.name not in given_det_names:
@@ -91,6 +95,17 @@ def _generative_fn(model, device=None, dtype=None, given_names=(), given_det_nam
         return out if outputs is None else {k: out[k] for k in outputs}
 
     return fn
+
+
+def draw_rv(rv, generator, env, memo):
+    """One draw of the random variable `rv` from `generator`, its parents'
+    values in `env`; an observed RV is drawn at its data's shape."""
+    if not isinstance(rv, ObservedRV):
+        return rv.dist.sample(generator, (), env, memo)
+    target = tuple(rv.shape)
+    n = len(rv.dist.shape)
+    extra = target[: len(target) - n] if n <= len(target) else ()
+    return torch.broadcast_to(rv.dist.sample(generator, extra, env, memo), target)
 
 
 def _generator(random_seed, device):
@@ -307,3 +322,170 @@ def sample_posterior_predictive(trace, model=None, var_names=None, sample_vars=N
         trace.extend(idata, join="left")
         return trace
     return idata
+
+
+def posterior_rows(posterior, names):
+    """({name: (C*S, ...) numpy}, (C, S)) of the variables `names` that
+    `posterior` (a Dataset or a dict of (chain, draw, ...) arrays) holds."""
+    rows, cs = {}, None
+    for name in names:
+        if name in posterior:
+            vals = np.asarray(getattr(posterior[name], "values", posterior[name]))
+            cs = vals.shape[:2]
+            rows[name] = vals.reshape((cs[0] * cs[1],) + vals.shape[2:])
+    return rows, cs
+
+
+def map_over_posterior(fn, rows, shape, device, dtype=None, chunk=None, randomness="error"):
+    """fn(row) -> a tensor, or a dict, list or tuple of them, vmapped over
+    the rows of `rows` ({name: (N, ...) numpy}, floats cast to `dtype`,
+    default `floatX(device)`) on `device`, `chunk` rows (default
+    POSTERIOR_CHUNK) at a time; returns the same structure of numpy arrays,
+    their N rows reshaped to `shape` (the posterior's (chain, draw))."""
+    from torch.utils._pytree import tree_flatten, tree_unflatten
+
+    dtype = dtype or floatX(device)
+    chunk = chunk or POSTERIOR_CHUNK
+    n = len(next(iter(rows.values())))
+    batched = torch.func.vmap(fn, randomness=randomness)
+    parts, spec = [], None
+    for i in range(0, n, chunk):
+        block = {}
+        for k, v in rows.items():
+            t = torch.as_tensor(v[i : i + chunk], device=device)
+            block[k] = t.to(dtype) if t.is_floating_point() else t
+        leaves, spec = tree_flatten(batched(block))
+        parts.append([leaf.detach().cpu() for leaf in leaves])
+    joined = [torch.cat(p).numpy() for p in zip(*parts)]
+    return tree_unflatten([v.reshape(tuple(shape) + v.shape[1:]) for v in joined], spec)
+
+
+def compute_deterministics(idata, *, var_names=None, model=None, sample_dims=("chain", "draw"),
+                           merge_dataset=False, progressbar=True, compile_kwargs=None,
+                           device=None):
+    """The model's deterministics (those `var_names` names, default all)
+    recomputed from a posterior's free RVs on `device` (default: the card),
+    as a Dataset; with merge_dataset they are written into the posterior,
+    which is returned (`pymc_tpu/sampling/forward.py:360`; reference
+    sampling/deterministic.py:53)."""
+    model = modelcontext(model)
+    device = resolve_device(device)
+    post = idata.posterior if hasattr(idata, "posterior") else idata
+    dets = [d for d in model.deterministics if var_names is None or d.name in set(var_names)]
+    rows, cs = posterior_rows(post, [rv.name for rv in model.free_RVs])
+    placed = model.placed_constants(device)
+
+    def fn(env):
+        memo = dict(placed)
+        return {d.name: evaluate(d, env, memo) for d in dets}
+
+    ds = dataset_from_draws(model, map_over_posterior(fn, rows, cs, device))
+    if merge_dataset and hasattr(idata, "posterior"):
+        for k, v in ds.items():
+            idata.posterior[k] = v
+        return idata.posterior
+    return ds
+
+
+def rv_order(rvs, satisfied=()):
+    """`rvs` in an order in which each comes after the random variables it
+    depends on (names in `satisfied` count as given)."""
+    satisfied = set(satisfied)
+    deps = {
+        id(rv): [a for a in ancestors(_parents(rv))
+                 if isinstance(a, (FreeRV, ObservedRV)) and a is not rv]
+        for rv in rvs
+    }
+    order, placed = [], set()
+    while len(order) < len(rvs):
+        ready = [rv for rv in rvs if id(rv) not in placed
+                 and all(id(d) in placed or d.name in satisfied for d in deps[id(rv)])]
+        if not ready:  # pragma: no cover - a model is a DAG by construction
+            raise RuntimeError("cyclic random-variable dependencies")
+        order += ready
+        placed.update(id(rv) for rv in ready)
+    return order
+
+
+def vectorize_over_posterior(fn=None, idata=None, model=None, *, outputs=None, posterior=None,
+                             input_rvs=None, allow_rvs_in_graph=True, random_seed=None,
+                             device=None):
+    """Apply a computation to every posterior draw on `device` (default:
+    the card; `pymc_tpu/sampling/forward.py:403`, reference
+    forward.py:1337).
+
+    - `vectorize_over_posterior(fn, idata)`: fn({free RV name: value}) ->
+      a tensor or a dict, list or tuple of them, vmapped over the
+      flattened (chain, draw) posterior; the same structure of (chain,
+      draw, ...) numpy arrays comes back.
+    - `vectorize_over_posterior(outputs=[nodes], posterior=ds,
+      input_rvs=[rvs])`: each output evaluated at every draw with
+      `input_rvs` taken from `posterior`; every other random variable the
+      outputs reach is drawn anew for each draw (from a generator seeded
+      by `random_seed`) when allow_rvs_in_graph, else RuntimeError.
+      Returns a list of (chain, draw, ...) arrays.
+    """
+    device = resolve_device(device)
+    if outputs is not None:
+        return _vectorize_outputs(outputs, posterior, list(input_rvs or []), allow_rvs_in_graph,
+                                  random_seed, device)
+    model = modelcontext(model)
+    rows, cs = posterior_rows(idata.posterior, [rv.name for rv in model.free_RVs])
+    return map_over_posterior(fn, rows, cs, device)
+
+
+def _vectorize_outputs(outputs, posterior, input_rvs, allow_rvs_in_graph, random_seed, device):
+    input_names = [rv.name for rv in input_rvs]
+    if input_names:
+        rows, cs = posterior_rows(posterior, input_names)
+    else:
+        names = list(getattr(posterior, "data_vars", posterior))
+        _, cs = posterior_rows(posterior, names[:1])
+        rows = {"_": np.zeros(cs[0] * cs[1])}
+    volatile = [rv for rv in ancestors(outputs)
+                if isinstance(rv, (FreeRV, ObservedRV)) and rv.name not in set(input_names)]
+    if volatile and not allow_rvs_in_graph:
+        raise RuntimeError(
+            "The following random variables found in the extracted graph would be resampled: "
+            f"{[rv.name or '<anonymous>' for rv in volatile]} (pass allow_rvs_in_graph=True or "
+            "list them in input_rvs)"
+        )
+    order = rv_order(volatile, input_names)
+    placed = place_constants(list(outputs), device, floatX(device))
+    gen = _generator(random_seed, device)
+
+    def one(given):
+        env = {k: v for k, v in given.items() if k != "_"}
+        memo = dict(placed)
+        for rv in order:
+            env[rv.name] = memo[id(rv)] = draw_rv(rv, gen, env, memo)
+        return [evaluate(o, env, memo) for o in outputs]
+
+    return map_over_posterior(one, rows, cs, device, randomness="different")
+
+
+def compile_forward_sampling_function(outputs=None, vars_in_trace=None, model=None, device=None,
+                                      **kwargs):
+    """A generative sampler over the model (`pymc_tpu/sampling/
+    forward.py:524`): (fn, volatile_names), where fn(generator,
+    given_values=None) -> {name: tensor} draws every variable `outputs`
+    names (default: all) once; the free RVs named in `vars_in_trace` take
+    their values from `given_values`, and the rest (the volatile set,
+    observed RVs included) are drawn anew from `generator` (a
+    torch.Generator on `device`, default the card). fn may be vmapped with
+    randomness="different" for a batch of draws."""
+    model = modelcontext(model)
+    device = resolve_device(device)
+    given = [getattr(v, "name", str(v)) for v in (vars_in_trace or [])]
+    want = None if outputs is None else [getattr(o, "name", str(o)) for o in outputs]
+    fn = _generative_fn(model, device, floatX(device), given_names=given, outputs=want)
+    volatile = ([rv.name for rv in model.free_RVs if rv.name not in set(given)]
+                + [orv.name for orv in model.observed_RVs])
+    dtype = floatX(device)
+
+    def sampler(generator, given_values=None):
+        given_values = {k: torch.as_tensor(v, device=device) for k, v in (given_values or {}).items()}
+        return fn(generator, {k: v.to(dtype) if v.is_floating_point() else v
+                              for k, v in given_values.items()})
+
+    return sampler, volatile

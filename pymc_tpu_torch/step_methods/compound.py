@@ -365,12 +365,18 @@ def _stat_array(values):
 def sample_with_steps(draws=1000, tune=1000, chains=4, model=None, step=None,
                       random_seed=None, discard_tuned_samples=True,
                       compute_convergence_checks=True, return_inferencedata=True,
-                      initvals=None, jitter_max_retries=10, var_names=None, device=None):
+                      initvals=None, jitter_max_retries=10, var_names=None, device=None,
+                      idata_kwargs=None):
     """MCMC with compound or explicit step methods (pymc_tpu
     compound.py:162): every chain batched on one device, one Python loop
     over tune + draws draws. The starting points are jittered on the
-    continuous entries only; the warmup draws are cut (warmup groups,
-    `discard_tuned_samples=False`, are not ported and raise).
+    continuous entries only. With discard_tuned_samples=False the warmup
+    draws come back as the warmup_posterior and warmup_sample_stats groups
+    (every step's stats), PyMC's semantics: `pymc_tpu` ignores the argument
+    here (`pymc_tpu/step_methods/compound.py:218-223`, ROADMAP.md §3).
+    idata_kwargs={"log_likelihood": True} adds the log_likelihood group,
+    which `pymc_tpu`'s compound route leaves out; return_inferencedata=False
+    returns a MultiTrace.
 
     The posterior's attrs hold sampling_time, tuning_time, the stepper,
     step_host_ms (each step's host ms a draw, tuning included), n_logp and
@@ -381,16 +387,13 @@ def sample_with_steps(draws=1000, tune=1000, chains=4, model=None, step=None,
     `{name}{i}_host_reads` (the host reads of a NUTS, HMC or Slice step's
     loops); the prefix is left out for a single step. sample_stats holds each step's stats under the JAX
     package's names ({name}{i}_{stat} for a compound)."""
-    from ..initial_point import make_initial_points_per_chain
-    from ..sampling.mcmc import _postprocess, _synchronize
     from ..backends.arviz import to_inference_data
+    from ..backends.base import multitrace_from_idata
+    from ..initial_point import make_initial_points_per_chain
+    from ..sampling.mcmc import _postprocess, _refuse_unported, _synchronize
     from ..stats.convergence import log_warnings, run_convergence_checks
 
-    if not discard_tuned_samples:
-        raise NotImplementedError(
-            "sample(discard_tuned_samples=False) is not ported to pymc_tpu_torch yet: it "
-            "waits for the ROADMAP item on the rest of sample (warmup groups)"
-        )
+    _refuse_unported(idata_kwargs=idata_kwargs)
     if draws < 1:
         raise ValueError("draws must be >= 1")
     model = modelcontext(model)
@@ -423,7 +426,8 @@ def sample_with_steps(draws=1000, tune=1000, chains=4, model=None, step=None,
 
     tune_now = np.zeros(tune + draws, dtype=bool)
     tune_now[99::100] = True  # the reference's tune_interval of 100
-    q_draws = torch.empty((draws, chains, info.total_size), dtype=dtype, device=device)
+    warm = 0 if discard_tuned_samples else tune  # the warmup draws kept
+    q_draws = torch.empty((warm + draws, chains, info.total_size), dtype=dtype, device=device)
     stat_draws = []
     for i in range(tune + draws):
         is_tune = i < tune
@@ -432,14 +436,21 @@ def sample_with_steps(draws=1000, tune=1000, chains=4, model=None, step=None,
             t1 = time.perf_counter()
         flags = {"step_i": i, "is_tune": is_tune, "tune_now": bool(tune_now[i] and is_tune)}
         point, states, stats = stepper.step(source, point, states, flags)
-        if not is_tune:
-            q_draws[i - tune] = flat_point(point, info, dtype)
+        if i >= tune - warm:
+            q_draws[i - tune + warm] = flat_point(point, info, dtype)
             stat_draws.append(stats)
     _synchronize(device)
     t2 = time.perf_counter()
 
-    posterior = _postprocess(model, q_draws, var_names)
-    sample_stats = {k: _stat_array([s[k] for s in stat_draws]) for k in stat_draws[0]}
+    posterior = _postprocess(model, q_draws[warm:], var_names)
+    sample_stats = {k: _stat_array([s[k] for s in stat_draws[warm:]]) for k in stat_draws[0]}
+    warmup_groups = {}
+    if warm:
+        warmup_groups = {
+            "warmup_posterior": _postprocess(model, q_draws[:warm], var_names),
+            "warmup_sample_stats": {k: _stat_array([s[k] for s in stat_draws[:warm]])
+                                    for k in stat_draws[0]},
+        }
     extra = {}
     for i, (m, c0) in enumerate(zip(stepper.methods, counts0)):
         prefix = f"{m.name}{i}_" if len(stepper.methods) > 1 else ""
@@ -457,10 +468,14 @@ def sample_with_steps(draws=1000, tune=1000, chains=4, model=None, step=None,
         "device": str(device),
         "inference_library": "pymc_tpu_torch",
     }
-    idata = to_inference_data(model, posterior=posterior, sample_stats=sample_stats, attrs=attrs)
+    idata = to_inference_data(
+        model, posterior=posterior, sample_stats=sample_stats, warmup_groups=warmup_groups,
+        attrs=attrs, include_log_likelihood=bool((idata_kwargs or {}).get("log_likelihood")),
+        device=device,
+    )
     _log.info(f"Compound sampling of {draws} draws x {chains} chains took {t2 - t1:.2f}s")
     if compute_convergence_checks:
         log_warnings(run_convergence_checks(idata, model))
     if not return_inferencedata:
-        return posterior
+        return multitrace_from_idata(idata)
     return idata

@@ -173,11 +173,13 @@ def test_sample_routes_step_and_discrete_models():
     assert idata.posterior["z"].values.dtype == np.int64
     assert set(idata.sample_stats.keys()) >= {"nuts0_tree_depth", "nuts0_n_steps",
                                                "nuts0_acceptance_rate"}
-    post = pmt.sample(step=[pmt.Slice(vars=[m["g"]], model=m)], return_inferencedata=False,
-                      var_names=["g", "z"], **base)
-    assert sorted(post) == ["g", "z"] and post["g"].shape == (3, 20)
-    with pytest.raises(NotImplementedError, match="discard_tuned_samples"):
-        pmt.sample(discard_tuned_samples=False, **base)
+    trace = pmt.sample(step=[pmt.Slice(vars=[m["g"]], model=m)], return_inferencedata=False,
+                       var_names=["g", "z"], **base)
+    assert isinstance(trace, pmt.MultiTrace)
+    assert sorted(trace.varnames) == ["g", "z"] and trace.get_values("g").shape == (60,)
+    warm = pmt.sample(discard_tuned_samples=False, **base)
+    assert warm.warmup_posterior["z"].shape == (3, 20)
+    np.testing.assert_array_equal(warm.posterior["z"].values, idata.posterior["z"].values)
     with pytest.raises(NotImplementedError, match="compound step methods"):
         m.logp_dlogp_fn(device="cpu")
 

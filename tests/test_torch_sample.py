@@ -226,13 +226,15 @@ def test_bench_arguments_are_accepted():
 
 
 def test_arguments_that_do_nothing_on_one_device_are_accepted():
-    post = pmt.sample(
+    trace = pmt.sample(
         draws=3, tune=3, chains=2, model=eight_schools(pmt), random_seed=0, device="cpu",
         progressbar=True, cores=4, idata_kwargs={"log_likelihood": False},
-        nuts_sampler="pymc", return_inferencedata=False,
+        nuts_sampler="pymc", return_inferencedata=False, postprocessing_chunks=4,
+        keep_warning_stat=True,
     )
-    assert sorted(post) == ["mu", "tau", "theta", "theta_t"]
-    assert post["theta"].shape == (2, 3, 8)
+    assert isinstance(trace, pmt.MultiTrace)
+    assert sorted(trace.varnames) == ["mu", "tau", "theta", "theta_t"]
+    assert trace.get_values("theta").shape == (6, 8)
 
 
 def test_cuda_request_without_card_raises():
