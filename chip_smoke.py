@@ -143,7 +143,8 @@ Phases, in order; any failure ends the script with a non-zero exit:
                 hierarchical binomial (examples/hierarchical_binomial.py:
                 Beta, Binomial, Uniform, Exponential and pm.math.exp; 18
                 logodds, one interval and one log free parameter) at 64
-                chains, tune 1000, draws 1000 (models.BINOMIAL_SAMPLE_KWARGS);
+                chains, tune 500, draws 500 (models.BINOMIAL_SMOKE_KWARGS, cut
+                from the fixture's 1000/1000 to make room for phase 14);
                 each with phase 5's launch identities and no Cholesky,
                 every draw finite, max R-hat < 1.05, and the means of the
                 named scalars within 5 combined MCSE of
@@ -171,6 +172,34 @@ Phases, in order; any failure ends the script with a non-zero exit:
                 draws on the card: one Cholesky launch a chunk of
                 sampling.forward.POSTERIOR_CHUNK draws, and the values of
                 the CPU in float64
+  14. multivariate — the LKJ family, Wishart, ZeroSumNormal, the
+                multinomials, MatrixNormal, CAR/ICAR and
+                StickBreakingWeights: 14a. PyMC's correlated-effects radon
+                model (models.radon_lkj_model: LKJCholeskyCov, (chol @
+                z).T, ab[county, 0]; 176 free values) at 64 chains, pooled
+                mass and step, target_accept 0.95, started from 3,000 ADVI
+                steps, tune 400, draws 250 (models.LKJ_RADON_SAMPLE_KWARGS):
+                phase 5's launch identities and no Cholesky, every draw
+                finite, R-hat < 1.05 on the free variables and the scalars,
+                the means of mu_ab, chol_stds, chol_corr[0, 1] and sigma
+                within 5 combined MCSE of
+                tests/data/torch_lkj_radon_reference.json (pymc_tpu on the
+                CPU); 14b. an LKJCorr(n = 10, eta = 2) prior (45 free
+                values) at 64 chains: each correlation's mean 0 and
+                variance 1/13 within 5 MCSE, R-hat < 1.05, phase 5's
+                identities and one Cholesky launch at (64, 10, 10) a
+                logp+grad call; the Cholesky's forward and backward timed
+                at (64, 10); 14c. each class's small model
+                (models.multivariate_model) and 14a's and 14b's: logp/grad
+                at 64 points on the card in float32 against the CPU in
+                float64, and the logp+grad replayed from a CUDA graph,
+                bitwise equal to the eager call, every shape captured (no
+                capture failure logged since phase 14 began); LKJCorr's and
+                Wishart's logp of a value that is not positive definite
+                -inf on the card; sample_prior_predictive of a prior of
+                each class that can be drawn from (20,000 draws): the mean
+                and variance of each entry within 5 standard errors of the
+                exact ones, the zero sums, simplex sums and counts
 
 Phase 3 also checks and times the Cholesky at SMC's (4, 3) stack, at
 phase 9's shapes and at phase 10's (1, 175) and (1, 150), and its jvp under
@@ -1027,7 +1056,6 @@ def check_graphed_logp(card):
     must be captured (a logp that reads the host would run eagerly)."""
     import pymc_tpu_torch as pm
     from pymc_tpu_torch import models
-    from pymc_tpu_torch.ops import linalg as la
 
     C, _ = stress_shape()
     radon = bench_module().build_model(pm)
@@ -1039,35 +1067,45 @@ def check_graphed_logp(card):
              ("hierarchical binomial", models.hierarchical_binomial_model(),
               models.BINOMIAL_SAMPLE_KWARGS["chains"])]
     for label, model, chains in cases:
-        D = model.raveled_info().total_size
-        rng = np.random.default_rng(0)
-        qs = [torch.as_tensor(rng.normal(0.0, 0.3, size=(chains, D)), device="cuda",
-                              dtype=torch.float32) for _ in range(5)]
-        graphed = model.logp_dlogp_fn(device="cuda")
-        fns = {"eager": graphed.fn, "graphed": graphed}
-        outs, launches, ms = {}, {}, {}
-        for name, fn in fns.items():
-            la.cholesky_batched.launches = 0
-            outs[name] = [fn(q) for q in qs]
-            torch.cuda.synchronize()
-            launches[name] = la.cholesky_batched.launches
-            t0 = time.perf_counter()
-            for i in range(30):
-                fn(qs[i % 5])
-            torch.cuda.synchronize()
-            ms[name] = (time.perf_counter() - t0) / 30 * 1e3
-        same = all(torch.equal(a, b) for o, r in zip(outs["graphed"], outs["eager"])
-                   for a, b in zip(o, r))
-        captured = all(g.graph is not None for g in graphed.graphs.values())
-        print(f"{label} ({chains}, {D}) logp+grad: graphed bitwise equal to eager {same}; "
-              f"captured {captured}; Cholesky launches {launches['graphed']} / "
-              f"{launches['eager']}; host ms a call eager {ms['eager']:.3f}, graphed "
-              f"{ms['graphed']:.3f}  [{card}]")
-        if not (same and launches["graphed"] == launches["eager"]):
-            raise AssertionError(f"{label}: the graphed logp+grad differs from the eager one")
-        if label in ("BEST", "hierarchical binomial") and not captured:
-            raise AssertionError(f"{label}: the logp+grad was not captured in a CUDA graph")
+        check_graphed(label, model, chains, card,
+                      must_capture=label in ("BEST", "hierarchical binomial"))
 
+
+def check_graphed(label, model, chains, card, must_capture):
+    """The model's logp+grad replayed from a CUDA graph against the eager
+    call at (chains, D): outputs bitwise equal over five inputs, the same
+    Cholesky launches; host ms a call of both (30 calls, synchronised at the
+    end); with must_capture, every shape captured."""
+    from pymc_tpu_torch.ops import linalg as la
+
+    D = model.raveled_info().total_size
+    rng = np.random.default_rng(0)
+    qs = [torch.as_tensor(rng.normal(0.0, 0.3, size=(chains, D)), device="cuda",
+                          dtype=torch.float32) for _ in range(5)]
+    graphed = model.logp_dlogp_fn(device="cuda")
+    fns = {"eager": graphed.fn, "graphed": graphed}
+    outs, launches, ms = {}, {}, {}
+    for name, fn in fns.items():
+        la.cholesky_batched.launches = 0
+        outs[name] = [fn(q) for q in qs]
+        torch.cuda.synchronize()
+        launches[name] = la.cholesky_batched.launches
+        t0 = time.perf_counter()
+        for i in range(30):
+            fn(qs[i % 5])
+        torch.cuda.synchronize()
+        ms[name] = (time.perf_counter() - t0) / 30 * 1e3
+    same = all(torch.equal(a, b) for o, r in zip(outs["graphed"], outs["eager"])
+               for a, b in zip(o, r))
+    captured = all(g.graph is not None for g in graphed.graphs.values())
+    print(f"{label} ({chains}, {D}) logp+grad: graphed bitwise equal to eager {same}; "
+          f"captured {captured}; Cholesky launches {launches['graphed']} / "
+          f"{launches['eager']}; host ms a call eager {ms['eager']:.3f}, graphed "
+          f"{ms['graphed']:.3f}  [{card}]")
+    if not (same and launches["graphed"] == launches["eager"]):
+        raise AssertionError(f"{label}: the graphed logp+grad differs from the eager one")
+    if must_capture and not captured:
+        raise AssertionError(f"{label}: the logp+grad was not captured in a CUDA graph")
 
 def check_smc_density():
     """SMC's (prior, likelihood) logps on the card in float32 against the
@@ -1904,14 +1942,14 @@ def run_distribution_models(card):
     phase("11b hierarchical binomial: Beta, Binomial, Uniform, Exponential")
     binomial = run_distribution_model(
         card, "hierarchical binomial", models.hierarchical_binomial_model,
-        models.BINOMIAL_SAMPLE_KWARGS, models.BINOMIAL_SCALARS, BINOMIAL_REFERENCE)
+        models.BINOMIAL_SMOKE_KWARGS, models.BINOMIAL_SCALARS, BINOMIAL_REFERENCE)
     return {"BEST": best, "hierarchical binomial": binomial}
 
 
 class CaptureFailures:
     """The warnings of ops/cuda_graph.py for a capture that failed (that
     shape then runs eagerly), collected from the port's logger while
-    phase 12 runs."""
+    phase 12 or phase 14 runs."""
 
     def __init__(self):
         import logging
@@ -2402,6 +2440,303 @@ def run_results(card, radon_idata, gp_idata):
             "results GP": run_results_gp(card, gp_idata)}
 
 
+# phase 14: the multivariate family
+LKJ_RADON_REFERENCE = os.path.join(ROOT, "tests", "data", "torch_lkj_radon_reference.json")
+LKJ_CORR_N, LKJ_CORR_ETA = 10, 2.0
+# draws of each prior in 14c, and how many standard errors a moment may be off
+MV_PRIOR_DRAWS = 20_000
+MV_Z = 5.0
+
+
+def run_lkj_radon(card, failures):
+    """Phase 14a: PyMC's correlated-effects radon model
+    (models.radon_lkj_model: LKJCholeskyCov, (chol @ z).T, the gather
+    ab[county, 0]) at models.LKJ_RADON_SAMPLE_KWARGS: phase 5's launch
+    identities and no Cholesky, every draw finite, R-hat < 1.05 on every
+    free variable and on models.LKJ_RADON_SCALARS, whose means lie within 5
+    combined MCSE of tests/data/torch_lkj_radon_reference.json, and no CUDA
+    graph capture failed. Returns {kernel: launches}."""
+    from pymc_tpu_torch.models import (
+        LKJ_RADON_SAMPLE_KWARGS, lkj_radon_scalars, radon_lkj_model,
+    )
+    from pymc_tpu_torch.stats.convergence import mcse_mean, rhat
+
+    phase("14a correlated-effects radon: LKJCholeskyCov, (chol @ z).T, ab[county, 0]")
+    config = LKJ_RADON_SAMPLE_KWARGS
+    model = radon_lkj_model()
+    t0 = time.perf_counter()
+    idata, launches = sample_counted(model, config)
+    wall = time.perf_counter() - t0
+    post = idata.posterior
+    check_launch_identities("LKJ radon", post.attrs, launches)
+    if launches["cholesky"]:
+        raise AssertionError(f"LKJ radon: {launches['cholesky']} Cholesky launches")
+    for name in post.keys():
+        if post[name].shape[:2] != (config["chains"], config["draws"]):
+            raise AssertionError(f"LKJ radon: {name} has shape {post[name].shape}")
+        if not np.isfinite(post[name].values).all():
+            raise AssertionError(f"LKJ radon: non-finite draws in {name}")
+    # R-hat of the free variables and the scalars: chol_chol's upper entries
+    # are 0 and chol_corr's diagonal 1 up to rounding, whose R-hat means
+    # nothing
+    scalars = lkj_radon_scalars(post)
+    max_rhat = max([float(np.nanmax(rhat(post[rv.name].values))) for rv in model.free_RVs]
+                   + [float(rhat(x)) for x in scalars.values()])
+    sampling_summary("LKJ radon", idata, ["mu_ab", "chol_stds", "sigma"], card)
+    with open(LKJ_RADON_REFERENCE) as f:
+        ref = json.load(f)["params"]
+    for name, x in scalars.items():
+        se = float(np.hypot(mcse_mean(x), ref[name]["mcse"]))
+        z = (float(x.mean()) - ref[name]["mean"]) / se
+        print(f"LKJ radon {name}: mean {float(x.mean()):.5f} (reference "
+              f"{ref[name]['mean']:.5f}), {z:+.2f} combined MCSE")
+        if not abs(z) <= 5.0:
+            raise AssertionError(f"LKJ radon: {name} posterior mean is {z:+.2f} MCSE off")
+    print(f"LKJ radon: max R-hat {max_rhat:.4f}; leapfrogs a draw "
+          f"{leapfrogs_per_draw(idata, config):.1f} (lock-step, tuning included); logp+grad "
+          f"calls {post.attrs['n_logp_grad']}; phase wall {wall:.1f} s")
+    if not max_rhat < 1.05:
+        raise AssertionError(f"LKJ radon: max R-hat {max_rhat:.4f} >= 1.05")
+    if failures.messages:
+        raise AssertionError(f"LKJ radon: {failures.messages}")
+    return launches
+
+
+def run_lkj_prior(card, failures):
+    """Phase 14b: NUTS on an LKJCorr(n = 10, eta = 2) prior alone (45 free
+    values; models.LKJ_CORR_SAMPLE_KWARGS): every correlation's mean 0 and
+    variance 1 / (2 eta + n - 1) within 5 MCSE (exact: (r + 1)/2 ~ Beta(eta
+    - 1 + n/2, eta - 1 + n/2)), max R-hat < 1.05, phase 5's launch
+    identities, and one Cholesky launch (the correlation matrices of every
+    chain, (64, 10, 10)) a logp+grad call, its replays from the CUDA graph
+    counted as ops/cuda_graph.py adds them back; no capture failed. Then
+    the Cholesky's forward and backward timed at (64, 10). Returns
+    ({kernel: launches}, {name: device ms})."""
+    from pymc_tpu_torch.models import LKJ_CORR_SAMPLE_KWARGS, lkj_corr_prior_model
+    from pymc_tpu_torch.stats.convergence import mcse_mean, rhat
+
+    phase("14b LKJCorr(n = 10, eta = 2) prior: the Cholesky kernel in every logp+grad")
+    config = LKJ_CORR_SAMPLE_KWARGS
+    t0 = time.perf_counter()
+    idata, launches = sample_counted(lkj_corr_prior_model(LKJ_CORR_N, LKJ_CORR_ETA), config)
+    wall = time.perf_counter() - t0
+    post = idata.posterior
+    check_launch_identities("LKJ prior", post.attrs, launches)
+    calls = post.attrs["n_logp_grad"]
+    print(f"LKJ prior: Cholesky launches {launches['cholesky']}, logp+grad calls {calls}")
+    if launches["cholesky"] != calls:
+        raise AssertionError(f"LKJ prior: {launches['cholesky']} Cholesky launches for "
+                             f"{calls} logp+grad calls")
+    x = post["corr"].values.astype(np.float64)
+    if not (x.shape == (config["chains"], config["draws"], LKJ_CORR_N * (LKJ_CORR_N - 1) // 2)
+            and np.isfinite(x).all()):
+        raise AssertionError(f"LKJ prior: draws of shape {x.shape}, finite "
+                             f"{np.isfinite(x).all()}")
+    var = 1.0 / (2.0 * LKJ_CORR_ETA + LKJ_CORR_N - 1.0)
+    z_mean = np.array([x[..., k].mean() / mcse_mean(x[..., k]) for k in range(x.shape[-1])])
+    z_var = np.array([((x[..., k] ** 2).mean() - var) / mcse_mean(x[..., k] ** 2)
+                      for k in range(x.shape[-1])])
+    max_rhat = float(np.nanmax(rhat(x.copy())))
+    sampling_summary("LKJ prior", idata, ["corr"], card)
+    print(f"LKJ prior: {x.shape[-1]} correlations, mean 0 and variance {var:.5f} "
+          f"(1/{2 * LKJ_CORR_ETA + LKJ_CORR_N - 1:g}): "
+          f"|z| of the means max {np.abs(z_mean).max():.2f}, of the variances max "
+          f"{np.abs(z_var).max():.2f} MCSE; mean variance {float((x**2).mean()):.5f}; max "
+          f"R-hat {max_rhat:.4f}; leapfrogs a draw {leapfrogs_per_draw(idata, config):.1f}; "
+          f"phase wall {wall:.1f} s")
+    if not (np.abs(z_mean).max() <= 5.0 and np.abs(z_var).max() <= 5.0):
+        raise AssertionError("LKJ prior: a correlation's mean or variance is more than 5 MCSE "
+                             "off the exact one")
+    if not max_rhat < 1.05:
+        raise AssertionError(f"LKJ prior: max R-hat {max_rhat:.4f} >= 1.05")
+    if failures.messages:
+        raise AssertionError(f"LKJ prior: {failures.messages}")
+    return launches, chol_backward_times(card, config["chains"], LKJ_CORR_N)
+
+
+def _corr_and_stds(packed, n):
+    """(strictly-lower correlations, stds) of packed covariance factors."""
+    L = np.zeros(packed.shape[:-1] + (n, n))
+    r, c = np.tril_indices(n)
+    L[..., r, c] = packed
+    sd = np.sqrt((L**2).sum(-1))
+    C = L @ np.swapaxes(L, -1, -2) / (sd[..., :, None] * sd[..., None, :])
+    r, c = np.tril_indices(n, -1)
+    return np.concatenate([C[..., r, c], sd], axis=-1)
+
+
+def mv_priors():
+    """{label: (model, draws -> statistics, (exact means, exact variances),
+    the sum of each draw's last axis or None)}: a prior of each class that
+    can be drawn from (its variable "x"), with the exact moments of the
+    statistics held in 14c."""
+    import pymc_tpu_torch as pm
+    from pymc_tpu_torch.models import MV_COLCOV, MV_RING, MV_ROWCOV
+
+    def model(build):
+        with pm.Model() as m:
+            build()
+        return m
+
+    U, V, p3, a3 = MV_ROWCOV, MV_COLCOV, np.array([0.2, 0.3, 0.5]), np.array([0.5, 2.0, 1.5])
+    cut, eta = np.array([-1.0, 0.5, 2.0]), 0.3
+    p_om = np.diff(np.concatenate([[0.0], 1.0 / (1.0 + np.exp(-(cut - eta))), [1.0]]))
+    A = a3.sum()
+    alpha, K = 2.0, 4
+    k = np.arange(K)
+    stick_mean = np.append((alpha / (1 + alpha)) ** k / (1 + alpha), (alpha / (1 + alpha)) ** K)
+    stick_m2 = np.append(2 / ((1 + alpha) * (2 + alpha)) * (alpha / (alpha + 2)) ** k,
+                         (alpha / (alpha + 2)) ** K)
+    car_cov = np.linalg.inv(2.0 * (np.diag(MV_RING.sum(-1)) - 0.6 * MV_RING))
+    n_corr = LKJ_CORR_N * (LKJ_CORR_N - 1) // 2
+
+    def flat(x):
+        return x.reshape(len(x), -1)
+
+    return {
+        "LKJCorr (n = 10, eta = 2)": (
+            model(lambda: pm.LKJCorr("x", n=LKJ_CORR_N, eta=LKJ_CORR_ETA)), flat,
+            (np.zeros(n_corr), np.full(n_corr, 1.0 / (2 * LKJ_CORR_ETA + LKJ_CORR_N - 1))),
+            None),
+        "LKJCholeskyCov (n = 3, eta = 2, sd Exponential(1))": (
+            model(lambda: pm.LKJCholeskyCov("x", n=3, eta=2.0, compute_corr=False,
+                                            sd_dist=pm.Exponential.dist(1.0, shape=3))),
+            lambda x: _corr_and_stds(x, 3),
+            (np.r_[0.0, 0.0, 0.0, 1.0, 1.0, 1.0], np.r_[[1 / 6] * 3, [1.0] * 3]), None),
+        "Wishart (nu = 5)": (
+            model(lambda: pm.Wishart("x", nu=5.0, V=U)), flat,
+            (5.0 * U.ravel(), 5.0 * (U**2 + np.outer(np.diag(U), np.diag(U))).ravel()), None),
+        "Multinomial (n = 10)": (
+            model(lambda: pm.Multinomial("x", n=10, p=p3)), flat,
+            (10 * p3, 10 * p3 * (1 - p3)), 10),
+        "DirichletMultinomial (n = 10)": (
+            model(lambda: pm.DirichletMultinomial("x", n=10, a=a3)), flat,
+            (10 * a3 / A, 10 * (a3 / A) * (1 - a3 / A) * (10 + A) / (1 + A)), 10),
+        "OrderedMultinomial (n = 12)": (
+            model(lambda: pm.OrderedMultinomial("x", eta=eta, cutpoints=cut, n=12)), flat,
+            (12 * p_om, 12 * p_om * (1 - p_om)), 12),
+        "StickBreakingWeights (alpha = 2, K = 4)": (
+            model(lambda: pm.StickBreakingWeights("x", alpha=alpha, K=K)), flat,
+            (stick_mean, stick_m2 - stick_mean**2), 1.0),
+        "ZeroSumNormal (sigma = 1.5, 5)": (
+            model(lambda: pm.ZeroSumNormal("x", sigma=1.5, shape=(5,))), flat,
+            (np.zeros(5), np.full(5, 1.5**2 * (1 - 1 / 5))), 0.0),
+        "ZeroSumNormal (sigma = 0.8, 3 x 4, two axes)": (
+            model(lambda: pm.ZeroSumNormal("x", sigma=0.8, n_zerosum_axes=2, shape=(3, 4))),
+            flat, (np.zeros(12), np.full(12, 0.8**2 * (1 - 1 / 3) * (1 - 1 / 4))), 0.0),
+        "MatrixNormal (3 x 2)": (
+            model(lambda: pm.MatrixNormal("x", mu=np.arange(6.0).reshape(3, 2), rowcov=U,
+                                          colcov=V)), flat,
+            (np.arange(6.0), np.outer(np.diag(U), np.diag(V)).ravel()), None),
+        "CAR (ring of 5, alpha = 0.6, tau = 2)": (
+            model(lambda: pm.CAR("x", mu=np.zeros(5), W=MV_RING, alpha=0.6, tau=2.0)), flat,
+            (np.zeros(5), np.diag(car_cov)), None),
+    }
+
+
+def check_mv_priors(card, device="cuda"):
+    """14c's draws: sample_prior_predictive of each of mv_priors() on
+    `device`, MV_PRIOR_DRAWS draws: every draw finite, the multinomial
+    counts summing to n, the stick-breaking weights to 1 and the zero-sum
+    draws to 0 along their last axis (and the second-to-last for two axes),
+    to float32's rounding (1e-5 of the largest entry times the axis'
+    length); the mean and variance of each statistic within MV_Z standard
+    errors of the exact ones. Returns the launches of the draws, counted."""
+    import pymc_tpu_torch as pm
+
+    priors = mv_priors()
+    t0 = time.perf_counter()
+    draws, launches = counted(lambda: {
+        label: pm.sample_prior_predictive(draws=MV_PRIOR_DRAWS, model=m, random_seed=1,
+                                          return_inferencedata=False, device=device)["x"]
+        for label, (m, _, _, _) in priors.items()})
+    wall = time.perf_counter() - t0
+    for label, (_, stat, (mean, var), total) in priors.items():
+        x = draws[label]
+        if not np.isfinite(x).all():
+            raise AssertionError(f"{label}: non-finite prior draws")
+        if total is not None:
+            tol = 1e-5 * float(np.abs(x).max()) * x.shape[-1]
+            axes = (1, 2) if "two axes" in label else (1,)
+            err = max(float(np.abs(x.astype(np.float64).sum(axis=-ax) - total).max())
+                      for ax in axes)
+            if not err <= tol:
+                raise AssertionError(f"{label}: draws sum to {total} within {err:.3e} only")
+        s = stat(x.astype(np.float64))
+        c = s - s.mean(0)
+        var = np.broadcast_to(var, s.shape[1:])
+        z_mean = (s.mean(0) - mean) / np.sqrt(var / len(s))
+        z_var = (s.var(0) - var) / np.sqrt(
+            np.maximum(np.mean(c**4, 0) - np.mean(c**2, 0) ** 2, 1e-300) / len(s))
+        print(f"14c prior {label}: {x.shape}, max |z| of the means {np.abs(z_mean).max():.2f}, "
+              f"of the variances {np.abs(z_var).max():.2f}")
+        if not (np.abs(z_mean).max() <= MV_Z and np.abs(z_var).max() <= MV_Z):
+            raise AssertionError(f"{label}: prior draws' moments off the exact ones")
+    print(f"14c prior draws: {len(draws)} priors x {MV_PRIOR_DRAWS} draws in {wall:.1f} s; "
+          f"launches {launches}  [{card}]")
+    return launches
+
+
+def check_not_positive_definite_on_card():
+    """LKJCorr's and Wishart's logp of a value that is not positive definite
+    is -inf on the card (the Cholesky kernel's factor is NaN there), beside
+    finite ones for positive-definite values."""
+    import pymc_tpu_torch as pm
+    from pymc_tpu_torch.graph import place_constants
+    from pymc_tpu_torch.models import MV_ROWCOV
+
+    def logp(dist, value):
+        placed = place_constants(dist.inputs(), torch.device("cuda"), torch.float32)
+        return dist.logp(value.to("cuda", torch.float32), {}, placed).cpu()
+
+    lkj = logp(pm.LKJCorr.dist(n=3, eta=2.0), torch.tensor([[0.3, -0.2, 0.1], [0.9, 0.9, -0.9]]))
+    wishart = logp(pm.Wishart.dist(nu=5.0, V=MV_ROWCOV), torch.stack([
+        torch.as_tensor(MV_ROWCOV), torch.diag(torch.tensor([-1.0, -2.0, 3.0],
+                                                            dtype=torch.float64))]))
+    print(f"14c not positive definite: LKJCorr logp {lkj.tolist()}, Wishart logp "
+          f"{wishart.tolist()} (the second of each must be -inf)")
+    for lp in (lkj, wishart):
+        if not (bool(torch.isfinite(lp[0])) and bool(torch.isneginf(lp[1]))):
+            raise AssertionError("a value that is not positive definite must give -inf on the "
+                                 "card")
+
+
+def check_multivariate_classes(card, failures):
+    """Phase 14c: every class of the slice on the card: each of
+    models.multivariate_model's models, 14a's and 14b's, logp and gradient
+    at 64 points in float32 against the CPU in float64, and its logp+grad
+    replayed from a CUDA graph bitwise equal to the eager call (no capture
+    failure since phase 14 began); a value that is not positive definite
+    gives -inf; the prior draws' moments. Returns {kernel: launches} of the
+    prior draws."""
+    from pymc_tpu_torch import models
+
+    phase("14c every multivariate class on the card: logp/grad, CUDA graph, prior draws")
+    cases = [(name, models.multivariate_model(name)) for name in models.MULTIVARIATE_MODELS]
+    cases += [("LKJ radon (14a)", models.radon_lkj_model()),
+              ("LKJCorr prior (14b)", models.lkj_corr_prior_model(LKJ_CORR_N, LKJ_CORR_ETA))]
+    for label, model in cases:
+        check_logp_on_card(label, model)
+        check_graphed(label, model, 64, card, must_capture=True)
+    if failures.messages:
+        raise AssertionError(f"14c: {failures.messages}")
+    check_not_positive_definite_on_card()
+    return check_mv_priors(card)
+
+
+def run_multivariate(card):
+    """Phase 14: the multivariate family; returns ({path: {kernel:
+    launches}}, the Cholesky's times at (64, 10))."""
+    failures = CaptureFailures()
+    try:
+        radon = run_lkj_radon(card, failures)
+        prior, chol_times = run_lkj_prior(card, failures)
+        priors = check_multivariate_classes(card, failures)
+    finally:
+        failures.close()
+    return {"LKJ radon": radon, "LKJ prior": prior, "multivariate prior draws": priors}, chol_times
+
+
 def pair_records(launches, errs, times, shape):
     """The pair's records of the `kernels` line, timed at `shape`."""
     records = []
@@ -2470,6 +2805,8 @@ def main():
              "latent GP": latent_launches,
              **run_init_family(card, idata), **run_distribution_models(card),
              **run_step_methods(card), **run_results(card, idata, gp_idata)}
+    mv_paths, lkj_chol_times = run_multivariate(card)
+    paths.update(mv_paths)
     total = {k: sum(p[k] for p in paths.values()) for k in launches}
     kernels = kernel_records(total, errs, times, leaf, chol_err, chol_times)
     print("launches: " + "; ".join(f"{name} {p}" for name, p in paths.items()))
@@ -2480,6 +2817,10 @@ def main():
           f"{json.dumps(pair_records(total, errs, times, TIMED_SHAPES[0]))}")
     print(f"cholesky at SMC's {CHOL_TIMED[-1]}: "
           f"{json.dumps(chol_record(total, chol_err, chol_times, CHOL_TIMED[-1]))}")
+    b_ms, b_by = chol_backward_bound(64, LKJ_CORR_N)
+    lkj_chol = dict(lkj_chol_times, launches=paths["LKJ prior"]["cholesky"], bound_ms=b_ms,
+                    bound_by=b_by)
+    print(f"cholesky forward and backward at 14b's (64, {LKJ_CORR_N}): {json.dumps(lkj_chol)}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({
         "ok": True,

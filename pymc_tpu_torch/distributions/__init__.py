@@ -8,10 +8,11 @@ from .discrete import __all__ as _disc_all
 from .distribution import Continuous, Discrete, Distribution
 from .mixture import *  # noqa: F401,F403
 from .mixture import __all__ as _mix_all
-from .multivariate import Dirichlet, KroneckerNormal, MvNormal, MvStudentT
+from .multivariate import *  # noqa: F401,F403
+from .multivariate import __all__ as _mv_all
 
 __all__ = [
     "Distribution", "Continuous", "Discrete", "transforms", *_cont_all, *_disc_all,
-    "MvNormal", "MvStudentT", "KroneckerNormal", "Dirichlet",
+    *_mv_all,
     *[n for n in _mix_all if n != "MixtureTransformWarning"],
 ]

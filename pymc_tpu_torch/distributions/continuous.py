@@ -50,9 +50,11 @@ def standard_gamma(generator, alpha):
 
 
 def standard_exponential(generator, shape, like):
-    """Exp(1) draws of `shape` in `like`'s float type, on its device."""
-    out = torch.empty(shape, dtype=like.dtype, device=like.device)
-    return out.exponential_(generator=generator)
+    """Exp(1) draws of `shape` in `like`'s float type, on its device, as
+    -log(1 - U): out of place, so that `torch.func.vmap(...,
+    randomness="different")` (the forward samplers) draws anew for each
+    point, which an in-place `exponential_` cannot."""
+    return -torch.log1p(-standard_uniform(generator, shape, like))
 
 
 def _beta_draws(generator, shape, alpha, beta):

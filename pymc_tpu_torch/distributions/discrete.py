@@ -27,7 +27,7 @@ from .dist_math import (
     betainc, betaln, binomln, check_parameters, factln, gammaincc, log1mexp, logpow,
     normal_lcdf, safe_log, softplus,
 )
-from .continuous import standard_gamma
+from .continuous import standard_exponential, standard_gamma
 from .distribution import Discrete, as_param, standard_uniform
 
 __all__ = [
@@ -76,8 +76,7 @@ def _float(value, like):
 def _categorical(generator, logits):
     """Draws from the categorical of `logits` over their last axis, by the
     Gumbel-max trick (argmax of logits + Gumbel noise)."""
-    e = torch.empty(logits.shape, dtype=logits.dtype, device=logits.device)
-    gumbel = -torch.log(e.exponential_(generator=generator))
+    gumbel = -torch.log(standard_exponential(generator, logits.shape, logits))
     return torch.argmax(logits + gumbel, dim=-1)
 
 

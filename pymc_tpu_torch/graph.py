@@ -101,6 +101,76 @@ def _meta(x):
     return torch.empty(x.shape, dtype=x.dtype, device="meta")
 
 
+def _reverse_axes(x):
+    """x with its axes in reverse order (numpy's `.T` on any ndim)."""
+    return x.permute(*reversed(range(x.ndim)))
+
+
+def _torch_dtype(dtype):
+    """A torch dtype from a torch dtype, a numpy dtype or a dtype name."""
+    if isinstance(dtype, torch.dtype):
+        return dtype
+    return torch.from_numpy(np.empty(0, dtype=np.dtype(dtype))).dtype
+
+
+def _cast(x, dtype):
+    return x.to(dtype)
+
+
+def _squeeze(x, axis=None):
+    return torch.squeeze(x) if axis is None else torch.squeeze(x, axis)
+
+
+def _axes(axis, ndim):
+    """numpy's `axis` (None, an int or a tuple) as a tuple of dims."""
+    if axis is None:
+        return tuple(range(ndim))
+    return tuple(axis) if isinstance(axis, (tuple, list)) else (axis,)
+
+
+def _reduce(x, op, axis=None, keepdims=False):
+    """numpy's reductions (std and var with ddof 0; the mean of integers
+    in float64) over `axis`, any number of axes at once."""
+    dims = _axes(axis, x.ndim)
+    if op in ("mean", "std", "var") and not x.is_floating_point():
+        x = x.to(torch.float64)
+    if op == "prod":
+        # torch.prod takes one dim at a time; the last first, so the
+        # others keep their numbers
+        for d in sorted((d % x.ndim for d in dims), reverse=True):
+            x = torch.prod(x, d, keepdim=keepdims)
+        return x
+    if op in ("std", "var"):
+        fn = torch.std if op == "std" else torch.var
+        return fn(x, dim=dims, correction=0, keepdim=keepdims)
+    fn = {"sum": torch.sum, "mean": torch.mean, "max": torch.amax, "min": torch.amin}[op]
+    if not dims:
+        return x
+    return fn(x, dim=dims, keepdim=keepdims)
+
+
+def _cumsum(x, axis=None):
+    """numpy's cumsum: over the flattened array where axis is None."""
+    return torch.cumsum(x.reshape(-1), 0) if axis is None else torch.cumsum(x, axis)
+
+
+def _dot(a, b):
+    """numpy's dot: a product with a scalar, else a sum over the last axis
+    of a and the second-to-last of b (the last where b is a vector)."""
+    if a.ndim == 0 or b.ndim == 0:
+        return a * b
+    return torch.tensordot(a, b, dims=([a.ndim - 1], [max(b.ndim - 2, 0)]))
+
+
+def _tuple_index(x, *arrays, index, pos):
+    """x[index] with the arrays of the tuple `index` (at `pos`) taken from
+    `arrays`, the graph inputs that carry them."""
+    full = list(index)
+    for p, ix in zip(pos, arrays):
+        full[p] = ix
+    return x[tuple(full)]
+
+
 class Node:
     """Abstract lazy value. Subclasses set .shape and .dtype at construction."""
 
@@ -122,9 +192,89 @@ class Node:
     def _compute(self, env, memo):  # pragma: no cover - abstract
         raise NotImplementedError
 
+    # -- the ndarray-like methods of pymc_tpu/graph.py:138-254 -------------
+    @property
+    def ndim(self):
+        return len(self.shape)
+
+    @property
+    def size(self):
+        return int(np.prod(self.shape)) if self.shape else 1
+
+    @property
+    def T(self):
+        return apply(_reverse_axes, self)
+
+    def astype(self, dtype):
+        return apply(_cast, self, dtype=_torch_dtype(dtype))
+
+    def reshape(self, *shape):
+        if len(shape) == 1 and isinstance(shape[0], (tuple, list)):
+            shape = tuple(shape[0])
+        return apply(torch.reshape, self, shape=tuple(shape))
+
+    def ravel(self):
+        return apply(torch.ravel, self)
+
+    def flatten(self):
+        return apply(torch.ravel, self)
+
+    def squeeze(self, axis=None):
+        return apply(_squeeze, self, axis=axis)
+
+    def transpose(self, *axes):
+        if len(axes) == 1 and isinstance(axes[0], (tuple, list)):
+            axes = tuple(axes[0])
+        if not axes:
+            return self.T
+        return apply(torch.permute, self, dims=tuple(axes))
+
+    def sum(self, axis=None, keepdims=False):
+        return apply(_reduce, self, op="sum", axis=axis, keepdims=keepdims)
+
+    def prod(self, axis=None, keepdims=False):
+        return apply(_reduce, self, op="prod", axis=axis, keepdims=keepdims)
+
+    def mean(self, axis=None, keepdims=False):
+        return apply(_reduce, self, op="mean", axis=axis, keepdims=keepdims)
+
+    def std(self, axis=None, keepdims=False):
+        return apply(_reduce, self, op="std", axis=axis, keepdims=keepdims)
+
+    def var(self, axis=None, keepdims=False):
+        return apply(_reduce, self, op="var", axis=axis, keepdims=keepdims)
+
+    def max(self, axis=None, keepdims=False):
+        return apply(_reduce, self, op="max", axis=axis, keepdims=keepdims)
+
+    def min(self, axis=None, keepdims=False):
+        return apply(_reduce, self, op="min", axis=axis, keepdims=keepdims)
+
+    def cumsum(self, axis=None):
+        return apply(_cumsum, self, axis=axis)
+
+    def dot(self, other):
+        return apply(_dot, self, other)
+
+    def __len__(self):
+        if not self.shape:
+            raise TypeError("len() of unsized Node")
+        return self.shape[0]
+
+    def __iter__(self):
+        if not self.shape:
+            raise TypeError("iteration over a 0-d Node")
+        return (self[i] for i in range(self.shape[0]))
+
     def __getitem__(self, idx):
-        if isinstance(idx, (Node, np.ndarray, list, torch.Tensor)):
+        if isinstance(idx, _INDEX_ARRAYS):
             return apply(lambda x, ix: x[ix], self, idx)
+        if isinstance(idx, tuple):
+            # the arrays of a tuple index (a[county, 0]) become graph
+            # inputs too, so they move to the device with the model
+            pos = [i for i, ix in enumerate(idx) if isinstance(ix, _INDEX_ARRAYS)]
+            if pos:
+                return apply(_tuple_index, self, *[idx[i] for i in pos], index=idx, pos=pos)
         return apply(lambda x: x[idx], self)
 
     @staticmethod
@@ -176,10 +326,61 @@ class Node:
     def __rpow__(self, o):
         return apply(operator.pow, o, self)
 
+    def __floordiv__(self, o):
+        if not self._operand_ok(o):
+            return NotImplemented
+        return apply(operator.floordiv, self, o)
+
+    def __rfloordiv__(self, o):
+        return apply(operator.floordiv, o, self)
+
+    def __mod__(self, o):
+        if not self._operand_ok(o):
+            return NotImplemented
+        return apply(operator.mod, self, o)
+
+    def __rmod__(self, o):
+        return apply(operator.mod, o, self)
+
+    def __matmul__(self, o):
+        if not self._operand_ok(o):
+            return NotImplemented
+        return apply(operator.matmul, self, o)
+
+    def __rmatmul__(self, o):
+        return apply(operator.matmul, o, self)
+
     def __neg__(self):
         return apply(operator.neg, self)
 
-    # comparisons build symbolic masks; equality and hashing stay id-based
+    def __pos__(self):
+        return self
+
+    def __abs__(self):
+        return apply(torch.abs, self)
+
+    def __invert__(self):
+        return apply(torch.logical_not, self)
+
+    def __and__(self, o):
+        if not self._operand_ok(o):
+            return NotImplemented
+        return apply(torch.logical_and, self, o)
+
+    def __rand__(self, o):
+        return apply(torch.logical_and, o, self)
+
+    def __or__(self, o):
+        if not self._operand_ok(o):
+            return NotImplemented
+        return apply(torch.logical_or, self, o)
+
+    def __ror__(self, o):
+        return apply(torch.logical_or, o, self)
+
+    # comparisons build symbolic masks; hashing stays id-based, and a node
+    # equals itself (so `in` and dict lookups by identity still work); a
+    # foreign operand (None, a string) compares by identity
     def __lt__(self, o):
         return apply(operator.lt, self, o)
 
@@ -191,6 +392,20 @@ class Node:
 
     def __ge__(self, o):
         return apply(operator.ge, self, o)
+
+    def __eq__(self, o):
+        if o is self:
+            return True
+        if not self._operand_ok(o):
+            return NotImplemented
+        return apply(operator.eq, self, o)
+
+    def __ne__(self, o):
+        if o is self:
+            return False
+        if not self._operand_ok(o):
+            return NotImplemented
+        return apply(operator.ne, self, o)
 
     def __hash__(self):
         return id(self)
@@ -204,6 +419,9 @@ class Node:
             f"The truth value of a symbolic {type(self).__name__} is undefined. "
             "Use torch.where for branching on node values."
         )
+
+
+_INDEX_ARRAYS = (Node, np.ndarray, list, torch.Tensor)
 
 
 class ConstantNode(Node):

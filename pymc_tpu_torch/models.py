@@ -18,7 +18,13 @@ BASELINE config #5 (`suite.py::case_smc`), the bimodal mixture that
 of PyMC's coal-mining change-point case study at its published size, on
 synthetic counts, with two missing counts that are imputed: a discrete
 switchpoint and discrete imputed counts, which compound step methods
-sample. Each model function takes the
+sample. `radon_lkj_model` is PyMC's correlated-effects radon model (the
+multilevel-modeling primer's "Covariation between intercepts and slopes":
+an LKJ Cholesky prior on the county effects) on `bench.build_model`'s data,
+and `lkj_corr_prior_model` an LKJ prior on a correlation matrix alone, whose
+moments are known exactly; `multivariate_model` builds one small model
+for each of the other classes of the multivariate slice. Each model
+function takes the
 package to build with (`pymc_tpu_torch` by default), so the reference
 package builds the same model from the same data. The radon GLM's builder
 is `bench.build_model`; its sampling arguments are here.
@@ -39,9 +45,14 @@ __all__ = [
     "smc_mixture_model", "SMC_SAMPLE_KWARGS", "SMC_SEEDS", "smc_chain_estimates",
     "mixture_model", "best_data", "best_model", "BEST_SAMPLE_KWARGS", "BEST_SMOKE_KWARGS",
     "BEST_SCALARS",
-    "hierarchical_binomial_model", "BINOMIAL_SAMPLE_KWARGS", "BINOMIAL_SCALARS",
+    "hierarchical_binomial_model", "BINOMIAL_SAMPLE_KWARGS", "BINOMIAL_SMOKE_KWARGS",
+    "BINOMIAL_SCALARS",
     "changepoint_data", "changepoint_model", "changepoint_posterior", "CHANGEPOINT_SAMPLE_KWARGS",
     "CHANGEPOINT_SCALARS",
+    "radon_data", "radon_lkj_model", "LKJ_RADON_SAMPLE_KWARGS", "LKJ_RADON_SCALARS",
+    "lkj_radon_scalars",
+    "lkj_corr_prior_model", "LKJ_CORR_SAMPLE_KWARGS", "MULTIVARIATE_MODELS",
+    "multivariate_model", "MV_RING", "MV_ROWCOV", "MV_COLCOV",
 ]
 
 # bench.py's many-chain configuration (pooled mass and step, target_accept
@@ -405,6 +416,9 @@ def best_model(pm=None):
 # mass (the example runs 4 chains at seed 3)
 BINOMIAL_SAMPLE_KWARGS = dict(chains=64, tune=1000, draws=1000, random_seed=0,
                               mass_adapt="pooled")
+# chip_smoke.py phase 11b's, cut in depth to 500/500 to make room for phase
+# 14 within the script's time limit (PERF.md §4)
+BINOMIAL_SMOKE_KWARGS = dict(BINOMIAL_SAMPLE_KWARGS, tune=500, draws=500)
 BINOMIAL_SCALARS = ("phi", "kappa_log", "kappa")
 
 
@@ -493,3 +507,160 @@ def changepoint_posterior():
     for i, year in enumerate(CHANGEPOINT_MISSING):
         out[f"disasters_unobserved[{i}]"] = float(w @ np.where(s >= year, early, late))
     return out
+
+
+def radon_data(n_counties=85, n_obs=919, seed=1234):
+    """(county (n_obs,), floor (n_obs,), log_radon (n_obs,)): the synthetic
+    radon data of `bench.build_model`, drawn in the same order from the same
+    seed."""
+    rng = np.random.default_rng(seed)
+    county = rng.integers(0, n_counties, size=n_obs)
+    floor_x = rng.integers(0, 2, size=n_obs).astype(float)
+    true_a = rng.normal(1.5, 0.5, size=n_counties)
+    true_b = rng.normal(-0.7, 0.3, size=n_counties)
+    log_radon = true_a[county] + true_b[county] * floor_x + rng.normal(0, 0.6, size=n_obs)
+    return county, floor_x, log_radon
+
+
+# the correlated-effects radon model as chip_smoke.py phase 14a samples it:
+# phase 5's configuration (RADON_SAMPLE_KWARGS: 64 chains, pooled mass and
+# step, target_accept 0.95) started from 3,000 ADVI steps, tune 400, draws
+# 250. From phase 5's jittered starts some of the 64 chains drift to a
+# standard deviation near 0 early in the warmup and stay there: with a
+# pooled step every chain then runs trees of depth 10 (R-hat 2-11 on the
+# card, 1.08-1.15 for pymc_tpu on the CPU at tune 500). From the ADVI
+# approximation's draws every chain converges (PERF.md §6)
+LKJ_RADON_SAMPLE_KWARGS = dict(RADON_SAMPLE_KWARGS, tune=400, draws=250,
+                               init="advi+adapt_diag", n_init=3000)
+# the scalars held to the reference (lkj_radon_scalars)
+LKJ_RADON_SCALARS = ("mu_ab[0]", "mu_ab[1]", "chol_stds[0]", "chol_stds[1]", "chol_corr[0,1]",
+                     "sigma")
+
+
+def lkj_radon_scalars(posterior):
+    """{name: (chain, draw) float64 draws} of LKJ_RADON_SCALARS from a
+    posterior group of radon_lkj_model (either package's)."""
+    mu_ab, stds, corr, sigma = (np.asarray(posterior[n].values, dtype=np.float64)
+                                for n in ("mu_ab", "chol_stds", "chol_corr", "sigma"))
+    return {"mu_ab[0]": mu_ab[..., 0], "mu_ab[1]": mu_ab[..., 1], "chol_stds[0]": stds[..., 0],
+            "chol_stds[1]": stds[..., 1], "chol_corr[0,1]": corr[..., 0, 1], "sigma": sigma}
+
+
+def radon_lkj_model(pm=None, n_counties=85, n_obs=919):
+    """PyMC's correlated varying intercepts and slopes on the radon data:
+    chol, corr, stds = LKJCholeskyCov(n=2, eta=2, sd_dist=Exponential(0.5));
+    mu_ab ~ Normal(0, 5) (2); z ~ Normal(0, 1) (2, n_counties); ab =
+    (chol @ z).T; y ~ Normal(mu_ab[0] + ab[county, 0] + (mu_ab[1] +
+    ab[county, 1]) floor, sigma), sigma ~ Exponential(1). 176 free values at
+    the published 85 counties: the packed factor (3), mu_ab, z and sigma."""
+    if pm is None:
+        import pymc_tpu_torch as pm
+    county, floor_x, log_radon = radon_data(n_counties, n_obs)
+    with pm.Model() as model:
+        sd_dist = pm.Exponential.dist(0.5, shape=2)
+        chol, _, _ = pm.LKJCholeskyCov("chol", n=2, eta=2.0, sd_dist=sd_dist)
+        mu_ab = pm.Normal("mu_ab", 0.0, 5.0, shape=2)
+        z = pm.Normal("z", 0.0, 1.0, shape=(2, n_counties))
+        ab = pm.Deterministic("ab", (chol @ z).T)
+        theta = mu_ab[0] + ab[county, 0] + (mu_ab[1] + ab[county, 1]) * floor_x
+        sigma = pm.Exponential("sigma", 1.0)
+        pm.Normal("y", theta, sigma, observed=log_radon)
+    return model
+
+
+# the LKJ prior of chip_smoke.py phase 14b: 64 chains, pooled mass and step
+LKJ_CORR_SAMPLE_KWARGS = dict(chains=64, tune=200, draws=200, random_seed=0,
+                              mass_adapt="pooled", step_adapt="pooled")
+
+
+def lkj_corr_prior_model(n=10, eta=2.0, pm=None):
+    """corr ~ LKJCorr(n, eta) alone: n (n - 1) / 2 free values, each
+    correlation with mean 0 and variance 1 / (2 eta + n - 1) ((r + 1) / 2 ~
+    Beta(eta - 1 + n / 2, eta - 1 + n / 2))."""
+    if pm is None:
+        import pymc_tpu_torch as pm
+    with pm.Model() as model:
+        pm.LKJCorr("corr", n=n, eta=eta)
+    return model
+
+
+# the constants of the small multivariate models: a ring of 5 areas, and a
+# row and a column covariance
+MV_RING = np.roll(np.eye(5), 1, axis=1) + np.roll(np.eye(5), -1, axis=1)
+MV_ROWCOV = np.array([[2.5, 0.6, -0.4], [0.6, 1.8, 0.3], [-0.4, 0.3, 1.2]])
+MV_COLCOV = np.array([[1.5, -0.5], [-0.5, 0.8]])
+
+
+def _mv_lkj_corr(pm):
+    eta = pm.Gamma("eta", 4.0, 2.0)
+    pm.LKJCorr("c", n=3, eta=eta)
+
+
+def _mv_lkj_cov(pm):
+    pm.LKJCholeskyCov("chol", n=3, eta=2.0, sd_dist=pm.Exponential.dist(1.0, shape=3))
+
+
+def _mv_wishart(pm):
+    pm.Wishart("w", nu=5.0, V=MV_ROWCOV)
+
+
+def _mv_multinomial(pm):
+    p = pm.Dirichlet("p", np.ones(4))
+    pm.Multinomial("y", n=20, p=p, observed=np.array([[3, 5, 8, 4], [6, 6, 2, 6]]))
+
+
+def _mv_dirichlet_multinomial(pm):
+    a = pm.HalfNormal("a", 2.0, shape=3)
+    pm.DirichletMultinomial("y", n=10, a=a, observed=np.array([2, 5, 3]))
+
+
+def _mv_ordered_multinomial(pm):
+    eta = pm.Normal("eta", 0.0, 1.0)
+    pm.OrderedMultinomial("y", eta=eta, cutpoints=np.array([-1.0, 0.5, 2.0]), n=15,
+                          observed=np.array([3, 4, 6, 2]))
+
+
+def _mv_matrix_normal(pm):
+    pm.MatrixNormal("x", mu=np.arange(6.0).reshape(3, 2), rowcov=MV_ROWCOV, colcov=MV_COLCOV)
+
+
+def _mv_car(pm):
+    alpha = pm.Uniform("alpha", 0.0, 1.0)
+    tau = pm.Gamma("tau", 2.0, 1.0)
+    pm.CAR("phi", mu=np.zeros(5), W=MV_RING, alpha=alpha, tau=tau)
+
+
+def _mv_icar(pm):
+    sigma = pm.HalfNormal("sigma", 1.0)
+    pm.ICAR("phi", W=MV_RING, sigma=sigma)
+
+
+def _mv_stick_breaking(pm):
+    alpha = pm.Gamma("alpha", 2.0, 1.0)
+    pm.StickBreakingWeights("w", alpha=alpha, K=4)
+
+
+def _mv_zero_sum_normal(pm):
+    sigma = pm.HalfNormal("sigma", 1.0)
+    pm.ZeroSumNormal("z", sigma=sigma, n_zerosum_axes=2, shape=(3, 4))
+
+
+# one small model for each class of the multivariate slice: the class as a
+# free variable through its default transform, or, for the discrete
+# classes, as a likelihood whose parameters are free
+MULTIVARIATE_MODELS = {
+    "LKJCorr": _mv_lkj_corr, "LKJCholeskyCov": _mv_lkj_cov, "Wishart": _mv_wishart,
+    "Multinomial": _mv_multinomial, "DirichletMultinomial": _mv_dirichlet_multinomial,
+    "OrderedMultinomial": _mv_ordered_multinomial, "MatrixNormal": _mv_matrix_normal,
+    "CAR": _mv_car, "ICAR": _mv_icar, "StickBreakingWeights": _mv_stick_breaking,
+    "ZeroSumNormal": _mv_zero_sum_normal,
+}
+
+
+def multivariate_model(name, pm=None):
+    """The small model of MULTIVARIATE_MODELS[name] in `pm`."""
+    if pm is None:
+        import pymc_tpu_torch as pm
+    with pm.Model() as model:
+        MULTIVARIATE_MODELS[name](pm)
+    return model
