@@ -4,18 +4,23 @@ Phases, in order; any failure ends the script with a non-zero exit:
   1. device   — require CUDA; print the card's name and power limit
   2. build    — build pymc_tpu_torch/csrc/leapfrog.cu and cholesky.cu with
                 nvcc, one process each, started together; print ptxas's
-                register and shared-memory report
+                register and shared-memory report, and fail if a kernel of
+                leapfrog.cu spills registers
   3. kernels  — each kernel against its plain PyTorch version on the card:
                 the leapfrog pair at the (chains, D) of the three sampled
                 models (the stress GLM's (1024, 10004) among them) and at
                 edges of its range, in float32 and float64,
-                the fused NUTS leaf at the same shapes and dtypes from
-                states that hold every n from 0 to 2**10 - 1 and every
-                checkpoint slot, with inactive, turning and diverging rows
-                (logp -inf or NaN, energy error > 1000) and rows that take
-                the proposal; timed against the plain leaf and against the
-                sequence it replaced in the sampler (final_kick kernel,
-                plain bookkeeping, kick_drift kernel),
+                the fused NUTS leaf at the same shapes and dtypes and at
+                LEAF_SHAPES (every team size and values a thread of its
+                row kernel) from states that hold every n from 0
+                to 2**10 - 1 and every checkpoint slot, with inactive,
+                turning and diverging rows (logp -inf or NaN, energy error
+                > 1000) and rows that take the proposal, and from states
+                where all rows but one have stopped; timed at LEAF_TIMED
+                against the plain leaf, against the sequence it replaced
+                in the sampler (final_kick kernel, plain bookkeeping,
+                kick_drift kernel) and against its floor, one load pass
+                (kick_drift), one call at a time and back to back,
                 the batched Cholesky at the GP path's (64, 150) and at n from
                 1 to 1000 in float32 and float64, on both sides of the
                 shared-memory limit, and on batches with indefinite
@@ -221,6 +226,7 @@ from __future__ import annotations
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -295,6 +301,19 @@ CHOL_SOURCE = "pymc_tpu_torch/csrc/cholesky.cu"
 # come first, from sampled_shapes()
 EDGE_SHAPES = [(1, 1), (7, 175), (1024, 175), (64, 4097)]
 TIMED_SHAPES = [(64, 175), (1024, 175)]
+# the leaf is checked also at the latent GP's (64, 153) and at every team of
+# the row kernels (csrc/leapfrog.cu: kFewRows, kManyRows), for batches with
+# no more rows than SMs (5 and 3 chains: 2 warps a row of 33 values; 8 warps
+# of 1, 2, 4 or 8 values a thread, and the long-row kernel past 2048
+# values) and with more (523 chains: 2 warps of 1 or 2 values a thread, 4
+# warps of 4 or 8, the long-row kernel with 8); it is timed also at
+# (64, 153) and (64, 4097), beside its floor, one load pass (kick_drift),
+# at the same shapes and at (1, 1)
+LEAF_SHAPES = [(64, 153), (5, 33), (5, 256), (3, 257), (5, 600), (3, 2048), (3, 5000),
+               (523, 64), (523, 100), (523, 400), (523, 700), (523, 2100)]
+LEAF_TIMED = TIMED_SHAPES + [(64, 153), (64, 4097)]
+# calls enqueued back to back between two events for the back-to-back figure
+BACK_TO_BACK = 200
 # q', p_half and p' differ from the plain version only by FMA contraction;
 # ke also by the order of the row sum
 RTOL = {torch.float32: 1e-6, torch.float64: 1e-13}
@@ -413,6 +432,28 @@ def cuda_ms(fn, n=200, warmup=20, setup=None):
     return float(np.median(times)), host_ms
 
 
+def back_to_back_ms(calls, host_ms, setup=None):
+    """Device ms a call: `calls` (a list of callables) enqueued back to
+    back between two CUDA events, behind a device sleep of twice their host
+    time (at least 1 ms), so the host has enqueued them all before the
+    first one starts; `setup` runs before, outside the events. The lesser of
+    two runs."""
+    best = math.inf
+    for _ in range(2):
+        if setup is not None:
+            setup()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(int(max(1.0, 2.0 * len(calls) * host_ms) * sleep_cycles_per_ms()))
+        start.record()
+        for call in calls:
+            call()
+        end.record()
+        end.synchronize()
+        best = min(best, start.elapsed_time(end) / len(calls))
+    return best
+
+
 def leapfrog_inputs(C, D, dtype, seed):
     g = torch.Generator(device="cuda").manual_seed(seed)
 
@@ -465,6 +506,11 @@ def build_kernels():
     for name in ("leapfrog", "cholesky"):
         print(f"-- {name}.cu: nvcc {_build.build_seconds.get(name, 0.0):.2f} s")
         print(_build.build_log.get(name, "").strip())
+    spills = [m.group(0) for m in re.finditer(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                                              _build.build_log.get("leapfrog", ""))
+              if m.group(1) != "0" or m.group(2) != "0"]
+    if spills:
+        raise AssertionError(f"{KERNEL_SOURCE}: ptxas reports register spills: {spills}")
 
 
 def sampled_shapes():
@@ -664,24 +710,23 @@ def leaf_bound(s, flags):
     p_sum where it adds to it or checkpoints it, and two checkpoint rows per
     U-turn slot; it writes q, p, grad, the proposal where it takes it, p_sum
     where it adds to it, two checkpoint rows at even n, and the next q_half,
-    p_half. A row that does not step reads q, p, grad and inv_mass and
-    writes the next q_half, p_half. Scalars at their sizes: a stepping row
+    p_half. A row that does not step touches no row of D values. Scalars
+    at their sizes: a stepping row
     reads eps, h0, logp', log_size, max_eerr, sum_accept and u, act,
     turning, diverging, active0, n and n_target, and writes n, logp,
     sum_accept, diverging and act, turning where it checks a U-turn,
     log_size where it adds, max_eerr where it grows, prop_logp and
-    prop_energy where it takes; a row that does not step reads eps and act
-    (its act stays false)."""
+    prop_energy where it takes; a row that does not step reads act and
+    nothing else (its state, act included, stays as it is)."""
     C, D = s.q.shape
     size = s.q.element_size()
     f = {k: v.long() for k, v in flags.items() if k not in ("near_tie", "scale")}
     act, rest = f["act"], 1 - f["act"]
-    rows = (act * (4 + (f["add_psum"] | f["write_ckpt"]) + 2 * f["n_slots"] + 3
-                   + 3 * f["take"] + f["add_psum"] + 2 * f["write_ckpt"])
-            + rest * 4 + 2)
+    rows = act * (4 + (f["add_psum"] | f["write_ckpt"]) + 2 * f["n_slots"] + 3
+                  + 3 * f["take"] + f["add_psum"] + 2 * f["write_ckpt"] + 2)
     scalars = (act * ((7 + 2 + f["add_psum"] + f["bigger"] + 2 * f["take"]) * size
                       + 4 + 2 * 4 + 4 + 2 + f["check_turn"])
-               + rest * (size + 1))
+               + rest)
     n_bytes = int(rows.sum()) * D * size + int(scalars.sum()) + 8  # + the count
     n_ops = int((act * (11 + 6 * f["n_slots"]) + rest * 5).sum()) * D
     return bound_ms(n_bytes, n_ops, s.q.dtype)
@@ -754,81 +799,170 @@ def replaced_sequence(s, logp, grad, u):
         lf.final_kick_plain, lf.kick_drift_plain = plain
 
 
-def check_leaf(card):
-    """Phase 3, the fused leaf: nuts_leaf_step against nuts_leaf_step_plain
-    on the card, two leaves from each state, every call one launch; then
-    timed at LEAF_TIMED in float32 against the plain leaf and against the
-    sequence it replaced in the sampler. Returns (max abs error over the
-    sampled models' shapes in float32, {name: (device ms, host ms)} at
-    (64, 175), bound (ms, by) at (64, 175))."""
+def stopped_state(C, D, dtype, seed):
+    """leaf_state with every row but one stopped (turned): the late-subtree
+    case, where a lock-step batch waits for its longest tree. The row that
+    still steps sits at an odd n and does not diverge, so it checks
+    U-turns."""
+    s, logp, grad, u = leaf_state(C, D, dtype, seed)
+    keep = int(torch.nonzero(leaf_flags(s, logp, grad, u)["check_turn"]).flatten()[0])
+    stop = torch.ones(C, dtype=torch.bool, device="cuda")
+    stop[keep] = False
+    s.turning |= stop
+    s.act &= ~stop
+    return s, logp, grad, u
+
+
+def check_leaf_steps(tag, sk, logp, grad, u, seed):
+    """nuts_leaf_step on state sk against nuts_leaf_step_plain on a clone,
+    two leaves, every call one launch; returns (max abs error, near-ties,
+    {decision: rows})."""
     from pymc_tpu_torch.ops import leapfrog as lf
 
+    C, D = sk.q.shape
+    dtype = sk.q.dtype
+    sp = sk.clone()
+    keep = torch.ones(C, dtype=torch.bool, device="cuda")
+    ties, err = 0, 0.0
+    covered = {k: 0 for k in ("act", "take", "write_ckpt", "check_turn")}
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    for k in range(2):
+        flags = leaf_flags(sk, logp, grad, u)
+        for key in covered:
+            covered[key] += int(flags[key].sum())
+        tie = flags["near_tie"] & keep
+        ties += int(tie.sum())
+        if dtype == torch.float32:
+            keep &= ~tie
+        before = lf.nuts_leaf_step.launches
+        lf.nuts_leaf_step(sk, logp, grad, u)
+        if lf.nuts_leaf_step.launches != before + 1:
+            raise AssertionError(f"nuts_leaf_step at ({C}, {D}) launched no kernel")
+        lf.nuts_leaf_step_plain(sp, logp, grad, u)
+        torch.cuda.synchronize()
+        err = max(err, compare_leaf(f"{tag} leaf {k}", sk, sp, keep, flags["scale"], k))
+        # the next leaf: fresh gradients at the new points
+        grad = torch.randn(grad.shape, generator=g, device="cuda", dtype=dtype)
+        u = torch.rand(u.shape, generator=g, device="cuda", dtype=dtype)
+    return err, ties, covered
+
+
+def time_leaf(pristine, logp, grad, u, plain=True, back_to_back=True):
+    """The leaf on state `pristine` (restored before every call), float32:
+    {name: (device ms of one call under cuda_ms, host ms a call)} for the
+    kernel and, with `plain`, the plain leaf and the sequence it replaced,
+    in turns; and, with `back_to_back` (else None), the kernel's device ms
+    a call over BACK_TO_BACK calls enqueued back to back, each on a clone of
+    its own."""
+    from pymc_tpu_torch.ops import leapfrog as lf
+
+    work = {k: pristine.clone() for k in ("kernel", "plain", "sequence")}
+
+    def restore(*states):
+        return lambda: [getattr(s, f).copy_(getattr(pristine, f))
+                        for s in states for f in s.BUFFERS]
+
+    calls = {"nuts_leaf": (lambda: lf.nuts_leaf_step(work["kernel"], logp, grad, u),
+                           restore(work["kernel"]))}
+    if plain:
+        calls["nuts_leaf_plain"] = (
+            lambda: lf.nuts_leaf_step_plain(work["plain"], logp, grad, u), restore(work["plain"]))
+        calls["sequence"] = (lambda: replaced_sequence(work["sequence"], logp, grad, u),
+                             restore(work["sequence"]))
+    order = list(calls)
+    measured = {k: [] for k in calls}
+    for k in order + order[::-1]:
+        measured[k].append(cuda_ms(calls[k][0], setup=calls[k][1]))
+    if not back_to_back:
+        return measured, None
+    clones = [pristine.clone() for _ in range(BACK_TO_BACK)]
+    host_ms = min(m[1] for m in measured["nuts_leaf"])
+    b2b = back_to_back_ms([lambda s=s: lf.nuts_leaf_step(s, logp, grad, u) for s in clones],
+                          host_ms, setup=restore(*clones))
+    del clones
+    return measured, b2b
+
+
+def time_floor(C, D):
+    """One load pass at (C, D), float32: kick_drift's (device ms of one
+    call, device ms a call back to back)."""
+    from pymc_tpu_torch.ops import leapfrog as lf
+
+    q, p, grad, im, eps = leapfrog_inputs(C, D, torch.float32, seed=1)
+    call = lambda: lf.leapfrog_kick_drift(q, p, grad, im, eps)  # noqa: E731
+    one, host_ms = cuda_ms(call)
+    return one, back_to_back_ms([call] * BACK_TO_BACK, host_ms)
+
+
+def check_leaf(card):
+    """Phase 3, the fused leaf: nuts_leaf_step against nuts_leaf_step_plain
+    on the card, two leaves from each state (mid-subtree states at the
+    sampled shapes, the edges and LEAF_SHAPES; at TIMED_SHAPES also a state
+    with all rows but one stopped), every call one launch; then timed at
+    LEAF_TIMED in float32 against the plain leaf, the sequence it replaced
+    in the sampler, one load pass (the floor) and its bound, one call at a
+    time and back to back. Returns (max abs error over the sampled models'
+    shapes in float32, {name: (device ms, host ms)} at (64, 175), bound
+    (ms, by) at (64, 175))."""
     phase("3 nuts_leaf kernel against its plain version")
     path = sampled_shapes()
     err_path = 0.0
     for dtype in (torch.float32, torch.float64):
-        for C, D in path + EDGE_SHAPES:
+        held = "left out" if dtype == torch.float32 else "held to equality"
+        for C, D in path + EDGE_SHAPES + LEAF_SHAPES:
             sk, logp, grad, u = leaf_state(C, D, dtype, seed=C + D)
-            sp = sk.clone()
-            keep = torch.ones(C, dtype=torch.bool, device="cuda")
-            ties, err = 0, 0.0
-            covered = {k: 0 for k in ("take", "write_ckpt", "check_turn")}
-            g = torch.Generator(device="cuda").manual_seed(C + D + 1)
-            for k in range(2):
-                flags = leaf_flags(sk, logp, grad, u)
-                for key in covered:
-                    covered[key] += int(flags[key].sum())
-                tie = flags["near_tie"] & keep
-                ties += int(tie.sum())
-                if dtype == torch.float32:
-                    keep &= ~tie
-                before = lf.nuts_leaf_step.launches
-                lf.nuts_leaf_step(sk, logp, grad, u)
-                if lf.nuts_leaf_step.launches != before + 1:
-                    raise AssertionError(f"nuts_leaf_step at ({C}, {D}) launched no kernel")
-                lf.nuts_leaf_step_plain(sp, logp, grad, u)
-                torch.cuda.synchronize()
-                tag = f"({C}, {D}) {dtype} leaf {k}"
-                err = max(err, compare_leaf(tag, sk, sp, keep, flags["scale"], k))
-                # the next leaf: fresh gradients at the new points
-                grad = torch.randn(grad.shape, generator=g, device="cuda", dtype=dtype)
-                u = torch.rand(u.shape, generator=g, device="cuda", dtype=dtype)
-            held = "left out" if dtype == torch.float32 else "held to equality"
+            err, ties, covered = check_leaf_steps(f"({C}, {D}) {dtype}", sk, logp, grad, u,
+                                                  seed=C + D + 1)
             print(f"({C}, {D}) {dtype}: nuts_leaf max abs err {err:.3e}; near-ties {ties} "
                   f"({held}); rows taking {covered['take']}, writing a "
                   f"checkpoint {covered['write_ckpt']}, checking U-turns {covered['check_turn']}")
             if (C, D) in path and dtype == torch.float32:
                 err_path = max(err_path, err)
-    times, bound = {}, None
-    for C, D in TIMED_SHAPES:
+        for C, D in TIMED_SHAPES:
+            sk, logp, grad, u = stopped_state(C, D, dtype, seed=C + D)
+            err, ties, covered = check_leaf_steps(f"({C}, {D}) {dtype} all but one stopped",
+                                                  sk, logp, grad, u, seed=C + D + 1)
+            print(f"({C}, {D}) {dtype}, all rows but one stopped: nuts_leaf max abs err "
+                  f"{err:.3e}; near-ties {ties} ({held}); rows stepping {covered['act']}, "
+                  f"checking U-turns {covered['check_turn']}")
+    times, bound, summary = {}, None, {}
+    for C, D in LEAF_TIMED:
         pristine, logp, grad, u = leaf_state(C, D, torch.float32, seed=1)
         b_ms, b_by = leaf_bound(pristine, leaf_flags(pristine, logp, grad, u))
-        work = {k: pristine.clone() for k in ("kernel", "plain", "sequence")}
-
-        def restore(s):
-            return lambda: [getattr(s, f).copy_(getattr(pristine, f)) for f in s.BUFFERS]
-
-        calls = {
-            "nuts_leaf": (lambda: lf.nuts_leaf_step(work["kernel"], logp, grad, u),
-                          restore(work["kernel"])),
-            "nuts_leaf_plain": (lambda: lf.nuts_leaf_step_plain(work["plain"], logp, grad, u),
-                                restore(work["plain"])),
-            "sequence": (lambda: replaced_sequence(work["sequence"], logp, grad, u),
-                         restore(work["sequence"])),
-        }
-        order = list(calls)
-        measured = {k: [] for k in calls}
-        for k in order + order[::-1]:
-            measured[k].append(cuda_ms(calls[k][0], setup=calls[k][1]))
+        measured, b2b = time_leaf(pristine, logp, grad, u)
+        del pristine
         times[(C, D)] = {k: (min(m[0] for m in v), min(m[1] for m in v))
                          for k, v in measured.items()}
         for k, v in measured.items():
             print(f"({C}, {D}) float32 {k}: device ms "
                   f"{', '.join(f'{m[0]:.5f}' for m in v)}; host ms per call "
                   f"{', '.join(f'{m[1]:.5f}' for m in v)}  [{card}]")
-        print(f"({C}, {D}) float32 nuts_leaf bound {b_ms:.7f} ms ({b_by})  [{card}]")
+        floor, floor_b2b = time_floor(C, D)
+        print(f"({C}, {D}) float32 nuts_leaf back to back: {b2b:.5f} ms a call over "
+              f"{BACK_TO_BACK}; floor (kick_drift, one load pass) {floor:.5f} ms, back to back "
+              f"{floor_b2b:.5f}; bound {b_ms:.7f} ms ({b_by})  [{card}]")
+        summary[f"{C}x{D}"] = {
+            "nuts_leaf": times[(C, D)]["nuts_leaf"][0], "nuts_leaf_b2b": b2b,
+            "plain": times[(C, D)]["nuts_leaf_plain"][0],
+            "sequence": times[(C, D)]["sequence"][0],
+            "floor": floor, "floor_b2b": floor_b2b, "bound": b_ms,
+        }
         if bound is None:
             bound = (b_ms, b_by)
+        torch.cuda.empty_cache()
+    for C, D in TIMED_SHAPES:
+        pristine, logp, grad, u = stopped_state(C, D, torch.float32, seed=1)
+        b_ms, b_by = leaf_bound(pristine, leaf_flags(pristine, logp, grad, u))
+        measured, b2b = time_leaf(pristine, logp, grad, u, plain=False)
+        one = min(m[0] for m in measured["nuts_leaf"])
+        print(f"({C}, {D}) float32 nuts_leaf, all rows but one stopped: device ms "
+              f"{', '.join(f'{m[0]:.5f}' for m in measured['nuts_leaf'])}; back to back "
+              f"{b2b:.5f}; bound {b_ms:.7f} ms ({b_by})  [{card}]")
+        summary[f"{C}x{D}"].update(stopped=one, stopped_b2b=b2b)
+    one, b2b = time_floor(1, 1)
+    print(f"(1, 1) float32 floor (kick_drift): {one:.5f} ms, back to back {b2b:.5f}  [{card}]")
+    summary["1x1"] = {"floor": one, "floor_b2b": b2b}
+    print(f"leaf times {json.dumps(summary)}  [{card}]")
     return err_path, times[TIMED_SHAPES[0]], bound
 
 

@@ -175,6 +175,10 @@ class SubtreeState:
     half kick and drift (`leapfrog_kick_drift`), so q_half holds the point
     whose logp+grad the first leaf needs.
 
+    A row that does not step at a leaf keeps every buffer as it is: once a
+    row stops, it never steps again within the subtree (turning, diverging
+    and n >= n_target stay), so its q_half and p_half are dead.
+
     Buffers (BUFFERS, each written only in place):
       n (C,) int32            leaves built so far
       q, p, grad, logp        the last leaf
@@ -187,7 +191,8 @@ class SubtreeState:
                               prefix sum, at slot popcount(i) for even i
       turning, diverging, act (C,) bool; act: the chains that step at the
                               next leaf
-      q_half, p_half          the next leaf's half kick and drift
+      q_half, p_half          the next leaf's half kick and drift (on the
+                              rows that stepped at the last leaf)
       count (2,) int32        after leaf k, the number of chains in act
                               is count[k & 1]
     """
@@ -261,8 +266,8 @@ def nuts_leaf_step_plain(s, logp, grad, u):
     leaf loop after logp, grad = logp_grad(s.q_half), with the leaf's
     uniforms u (C,). The leaves at odd n check the completed subtrees ending
     there for a U-turn against their start slots. Then the next leaf's half
-    kick and drift, and its active chains. Returns their number, count[k & 1]
-    after leaf k.
+    kick and drift on the rows that stepped, and the active chains of the
+    next leaf. Returns their number, count[k & 1] after leaf k.
     """
     act = s.act
     p, ke = final_kick_plain(s.p_half, grad, s.inv_mass, s.eps)
@@ -321,8 +326,8 @@ def nuts_leaf_step_plain(s, logp, grad, u):
     s.diverging.copy_(torch.where(act, diverging, s.diverging))
 
     q_half, p_half = kick_drift_plain(s.q, s.p, s.grad, s.inv_mass, s.eps)
-    s.q_half.copy_(q_half)
-    s.p_half.copy_(p_half)
+    s.q_half.copy_(_w(act, q_half, s.q_half))
+    s.p_half.copy_(_w(act, p_half, s.p_half))
     s.act.copy_(s.active0 & (s.n < s.n_target) & ~s.turning & ~s.diverging)
     k = s.leaf
     s.count[k & 1] = s.act.sum()

@@ -14,7 +14,7 @@ The block's density holds the other variables at their current values
 flat point.
 
 NUTS draws through `sampling/nuts.py::nuts_transition`, so every leapfrog
-of its tree launches `nuts_leaf_kernel` on the card, and every subtree
+of its tree launches `nuts_leaf_row_kernel` on the card, and every subtree
 starts with one `leapfrog_kick_drift` kernel. The chains' trees advance in
 lock-step until the deepest one stops: `leapfrogs` counts the lock-step
 leaves, `subtrees` the subtrees, the stat n_steps each chain's own leaves.

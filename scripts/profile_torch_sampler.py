@@ -16,7 +16,8 @@ chains in float32:
      time and busy share, kernels per batched leapfrog split into
      logp+grad and everything else (the leaves, and spread over them the
      per-doubling merge, the subtree set-up and the per-draw adaptation),
-     and the five kernels with the most device time with their shares.
+     the fused leaf kernel's device time, launches and share, and the
+     kernels with the most device time with their shares.
 The short run's trees follow an unadapted step size and are cut at depth
 4, so its figures describe the per-leapfrog and per-doubling costs, not
 the tree sizes of a full run.
@@ -149,6 +150,12 @@ def sample_window(label, model, kw, k_logp, card):
           f"device kernel time {dev_ms / 1e3:.4f} s; busy {100 * dev_ms / 1e3 / wall:.2f} %; "
           f"{calls} logp+grad calls; kernels per batched leapfrog {per_call:.1f} = logp+grad "
           f"{k_logp:.1f} + sampler and adaptation {per_call - k_logp:.1f}  [{card}]")
+    leaf = [(ms, count) for name, ms, count in rows if "nuts_leaf" in name]
+    if leaf:
+        leaf_ms, leaf_n = sum(r[0] for r in leaf), sum(r[1] for r in leaf)
+        print(f"{label} leaf kernel: {leaf_ms:.3f} ms over {leaf_n} launches "
+              f"({1e3 * leaf_ms / leaf_n:.3f} us each), {100 * leaf_ms / dev_ms:.2f} % of the "
+              f"device time, {100 * leaf_ms / 1e3 / wall:.3f} % of the wall  [{card}]")
     for name, ms, count in rows[:8]:
         print(f"    {ms:10.3f} ms  {100 * ms / dev_ms:5.1f} %  {count:7d}x  {name[:80]}")
     return dev_ms, rows

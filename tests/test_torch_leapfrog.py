@@ -233,3 +233,34 @@ def test_leaf_buffers_struct_matches_the_kernel_source():
         kind = ctypes.c_void_p if m.group(2) else {"int64_t": ctypes.c_int64}[m.group(1)]
         fields += [(name.strip(), kind) for name in m.group(3).split(",")]
     assert fields == lf._LeafBuffers._fields_
+
+
+def _leaf_teams():
+    """The leaf kernel's team tables of csrc/leapfrog.cu, kFewRows and
+    kManyRows: {name: [(largest D, warps a row), ...]}."""
+    import os
+    import re
+
+    with open(os.path.join(_build.CSRC_DIR, "leapfrog.cu")) as f:
+        src = f.read()
+    teams = {}
+    for name in ("kFewRows", "kManyRows"):
+        body = re.search(rf"constexpr LeafTeam {name}\[\] = \{{(.*?)\}};", src).group(1)
+        teams[name] = [(2**63 - 1 if d == "INT64_MAX" else int(d), int(w))
+                       for d, w in re.findall(r"\{(\w+), (\d+)\}", body)]
+    return teams
+
+
+@pytest.mark.parametrize("D", [1, 45, 64, 65, 128, 129, 175, 512, 513, 2048, 2049, 10004])
+def test_leaf_teams_hold_every_row(D):
+    """Every D gets a team of 2, 4, 8 or 16 warps a row from each table (the
+    last entry takes every longer row), and a batch with no more rows than
+    SMs gets at least as many warps a row as a larger one."""
+    teams = _leaf_teams()
+    warps = {}
+    for name, table in teams.items():
+        limits = [d for d, _ in table]
+        assert limits == sorted(limits) and limits[-1] == 2**63 - 1, table
+        warps[name] = next(w for d, w in table if D <= d)
+        assert warps[name] in (2, 4, 8, 16)
+    assert warps["kFewRows"] >= warps["kManyRows"]

@@ -21,8 +21,8 @@ from bench import build_model
 import pymc_tpu as pmj
 import pymc_tpu_torch as pmt
 from pymc_tpu.blocking import unravel_vector
-from pymc_tpu.sampling.nuts import nuts_transition_batched
-from pymc_tpu_torch.ops.leapfrog import popcount
+from pymc_tpu.sampling.nuts import _build_subtree_b, _uniform_b, nuts_transition_batched
+from pymc_tpu_torch.ops.leapfrog import SubtreeState, nuts_leaf_step_plain, popcount
 from pymc_tpu_torch.sampling.nuts import TorchDraws, nuts_transition
 
 C = 8
@@ -191,3 +191,64 @@ def test_torch_draws_shapes_and_types():
     u = draws.leaf_uniform(depth, depth)
     assert u.shape == (4,) and bool(((u >= 0) & (u < 1)).all())
     assert draws.accept_uniform(depth).dtype == torch.float64
+
+
+# What a leaf may not change on a row that has stopped stepping: everything
+# but q_half and p_half (dead once the row stops) and the counters
+STOPPED_KEEPS = tuple(n for n in SubtreeState.BUFFERS if n not in ("q_half", "p_half", "count"))
+SUBTREE_FIELDS = ("n", "q", "p", "grad", "logp", "prop_q", "prop_p", "prop_grad", "prop_logp",
+                  "prop_energy", "log_size", "sum_accept", "max_eerr", "p_sum", "p_ckpt",
+                  "psum_ckpt", "turning", "diverging")
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_stopped_rows_keep_their_state_through_the_subtree(seed):
+    """The invariant behind the leaf kernel's early exit: once a row stops
+    stepping (turned, diverged, reached its 2**depth leaves, or never in
+    the subtree), no later leaf changes its state. One subtree of depth <=
+    4 built leaf by leaf with nuts_leaf_step_plain from the JAX package's
+    leaf uniforms, checked after every leaf; the result equals
+    `_build_subtree_b`'s to rtol 1e-10 (float64; integers and flags
+    exactly)."""
+    D, lg_j, lg_t = _gaussian_target()
+    rng = np.random.default_rng(300 + seed)
+    max_treedepth = 4
+    q0, p0 = rng.normal(size=(C, D)), rng.normal(size=(C, D))
+    inv_mass = rng.uniform(0.5, 1.5, size=(C, D))
+    # one chain not in the subtree, one diverging, and depths 0 to 4
+    eps = np.array(MIXED_STEPS) * rng.choice([-1.0, 1.0], C)
+    depth = np.array([4, 4, 3, 4, 2, 4, 0, 4], dtype=np.int32)
+    active0 = np.ones(C, dtype=bool)
+    active0[5] = False
+    logp0, grad0 = (np.array(x) for x in jax.vmap(lg_j)(jnp.asarray(q0)))
+    h0 = -logp0 + 0.5 * np.sum(p0 * inv_mass * p0, axis=-1)
+    keys = jax.random.split(jax.random.PRNGKey(seed), C)
+    out_j, p_first_j = _build_subtree_b(
+        jax.vmap(lg_j), keys, jnp.asarray(depth), jnp.asarray(active0), jnp.asarray(q0),
+        jnp.asarray(p0), jnp.asarray(grad0), jnp.asarray(logp0), jnp.asarray(eps),
+        jnp.asarray(inv_mass), jnp.asarray(h0), max_treedepth, 1000.0, False, False,
+    )
+    t = torch.as_tensor
+    s = SubtreeState(t(q0), t(p0), t(grad0), t(logp0), t(h0), t(inv_mass), t(eps), t(active0),
+                     t(depth), max_treedepth + 1)
+    stopped_at = np.full(C, -1)
+    leaf = 0
+    while True:
+        stopped = ~s.act.clone()
+        before = {name: getattr(s, name).clone() for name in STOPPED_KEEPS}
+        logp, grad = lg_t(s.q_half)
+        u = torch.as_tensor(np.array(_uniform_b(keys, jnp.asarray(s.n.numpy()), jnp.float64)))
+        count = int(nuts_leaf_step_plain(s, logp, grad, u))
+        for name in STOPPED_KEEPS:
+            torch.testing.assert_close(getattr(s, name)[stopped], before[name][stopped],
+                                       rtol=0, atol=0, equal_nan=True, msg=name)
+        stopped_at[(stopped.numpy()) & (stopped_at < 0)] = leaf
+        leaf += 1
+        if not count:
+            break
+    # rows stopped at different leaves, before the subtree's last
+    assert stopped_at[5] == 0 and len(set(stopped_at[stopped_at < leaf - 1].tolist())) >= 2
+    for name in SUBTREE_FIELDS:
+        np.testing.assert_allclose(getattr(s, name).numpy(), np.asarray(getattr(out_j, name)),
+                                   rtol=1e-10, atol=1e-12, err_msg=name)
+    np.testing.assert_allclose(s.p_ckpt[:, 0].numpy(), np.asarray(p_first_j), rtol=1e-10)
