@@ -9,7 +9,10 @@ safe value first (clamp, then where), so its gradient stays finite. Draws
 (`_sample`) come from an explicit `torch.Generator`: gamma-based ones
 (Gamma, Beta, StudentT, InverseGamma, ...) through `torch._standard_gamma`,
 which takes the generator, the rest from standard normals, uniforms and
-exponentials. `_icdf` is not ported yet (`Distribution.icdf` raises).
+exponentials. `_icdf` is the JAX package's closed form, or its
+`icdf_bisection` (Beta, StudentT, HalfStudentT, Gamma, InverseGamma,
+ChiSquared), with PyMC's NaN for invalid parameters (`check_icdf_parameters`
+under each class's own conditions), which the JAX package leaves out.
 """
 
 from __future__ import annotations
@@ -21,8 +24,8 @@ import torch
 
 from ..graph import apply
 from .dist_math import (
-    betainc, betaln, check_parameters, gammainc, gammaincc, log1mexp, log_i0, log_normal,
-    logpow, normal_lcdf, normal_lccdf, safe_log, softplus,
+    betainc, betaln, check_icdf_parameters, check_parameters, gammainc, gammaincc, icdf_bisection,
+    log1mexp, log_i0, log_normal, logpow, normal_lcdf, normal_lccdf, safe_log, softplus,
 )
 from .distribution import Continuous, as_param, standard_normal, standard_uniform
 
@@ -121,6 +124,9 @@ class Uniform(Continuous):
         frac = torch.clamp((value - lower) / (upper - lower), 0.0, 1.0)
         return check_parameters(safe_log(frac), lower < upper)
 
+    def _icdf(self, q, lower, upper):
+        return check_icdf_parameters(lower + q * (upper - lower), lower < upper)
+
     def _sample(self, generator, shape, lower, upper):
         return lower + (upper - lower) * standard_uniform(generator, shape, lower)
 
@@ -189,6 +195,9 @@ class Normal(Continuous):
 
     def _logccdf(self, value, mu, sigma):
         return check_parameters(normal_lccdf(mu, sigma, value), sigma > 0)
+
+    def _icdf(self, q, mu, sigma):
+        return check_icdf_parameters(mu + sigma * torch.special.ndtri(q), sigma > 0)
 
     def _sample(self, generator, shape, mu, sigma):
         return mu + sigma * standard_normal(generator, shape, mu)
@@ -287,6 +296,9 @@ class HalfNormal(Continuous):
         res = torch.log(torch.special.erf(torch.clamp(z, min=0.0)))
         res = torch.where(value >= 0, res, -torch.inf)
         return check_parameters(res, sigma > 0)
+
+    def _icdf(self, q, sigma):
+        return check_icdf_parameters(sigma * _SQRT_2 * torch.special.erfinv(q), sigma > 0)
 
     def _sample(self, generator, shape, sigma):
         return sigma * torch.abs(standard_normal(generator, shape, sigma))
@@ -400,6 +412,11 @@ class Beta(Continuous):
         res = torch.where(value < 0, -torch.inf, torch.where(value >= 1, 0.0, res))
         return check_parameters(res, alpha > 0, beta > 0)
 
+    def _icdf(self, q, alpha, beta):
+        res = icdf_bisection(lambda x: self._logcdf(x, alpha, beta), q, support="interval",
+                             lower=0.0, upper=1.0, logpdf_fn=lambda x: self._logp(x, alpha, beta))
+        return check_icdf_parameters(res, alpha > 0, beta > 0)
+
     def _sample(self, generator, shape, alpha, beta):
         return _beta_draws(generator, shape, alpha, beta)
 
@@ -428,6 +445,9 @@ class Kumaraswamy(Continuous):
         res = log1mexp(b * torch.log1p(-(safe**a)))
         res = torch.where(value < 0, -torch.inf, torch.where(value >= 1, 0.0, res))
         return check_parameters(res, a > 0, b > 0)
+
+    def _icdf(self, q, a, b):
+        return check_icdf_parameters((1.0 - (1.0 - q) ** (1.0 / b)) ** (1.0 / a), a > 0, b > 0)
 
     def _sample(self, generator, shape, a, b):
         u = standard_uniform(generator, shape, a)
@@ -464,6 +484,9 @@ class Exponential(Continuous):
     def _logccdf(self, value, lam):
         return check_parameters(-lam * torch.clamp(value, min=0.0), lam > 0)
 
+    def _icdf(self, q, lam):
+        return check_icdf_parameters(-torch.log1p(-q) / lam, lam > 0)
+
     def _sample(self, generator, shape, lam):
         return standard_exponential(generator, shape, lam) / lam
 
@@ -491,6 +514,10 @@ class Laplace(Continuous):
             z <= 0, math.log(0.5) + z, torch.log1p(-0.5 * torch.exp(-torch.clamp(z, min=0.0)))
         )
         return check_parameters(res, b > 0)
+
+    def _icdf(self, q, mu, b):
+        res = torch.where(q < 0.5, mu + b * torch.log(2.0 * q), mu - b * torch.log(2.0 - 2.0 * q))
+        return check_icdf_parameters(res, b > 0)
 
     def _sample(self, generator, shape, mu, b):
         e = standard_exponential(generator, shape, mu) - standard_exponential(generator, shape, mu)
@@ -556,6 +583,9 @@ class LogNormal(Continuous):
         res = torch.where(value > 0, res, -torch.inf)
         return check_parameters(res, sigma > 0)
 
+    def _icdf(self, q, mu, sigma):
+        return check_icdf_parameters(torch.exp(mu + sigma * torch.special.ndtri(q)), sigma > 0)
+
     def _sample(self, generator, shape, mu, sigma):
         return torch.exp(mu + sigma * standard_normal(generator, shape, mu))
 
@@ -612,6 +642,11 @@ class StudentT(Continuous):
         )
         return check_parameters(res, nu > 0, sigma > 0)
 
+    def _icdf(self, q, nu, mu, sigma):
+        res = icdf_bisection(lambda x: self._logcdf(x, nu, mu, sigma), q, support="real",
+                             logpdf_fn=lambda x: self._logp(x, nu, mu, sigma))
+        return check_icdf_parameters(res, nu > 0, sigma > 0)
+
     def _sample(self, generator, shape, nu, mu, sigma):
         return mu + sigma * _student_t_draws(generator, shape, nu)
 
@@ -651,6 +686,11 @@ class HalfStudentT(Continuous):
         res = torch.where(value == torch.inf, 0.0, res)
         return check_parameters(res, nu > 0, sigma > 0)
 
+    def _icdf(self, q, nu, sigma):
+        res = icdf_bisection(lambda x: self._logcdf(x, nu, sigma), q, support="positive",
+                             logpdf_fn=lambda x: self._logp(x, nu, sigma))
+        return check_icdf_parameters(res, nu > 0, sigma > 0)
+
     def _sample(self, generator, shape, nu, sigma):
         return torch.abs(sigma * _student_t_draws(generator, shape, nu))
 
@@ -683,6 +723,9 @@ class Pareto(Continuous):
         res = torch.where(value >= m, res, -torch.inf)
         return check_parameters(res, alpha > 0, m > 0)
 
+    def _icdf(self, q, alpha, m):
+        return check_icdf_parameters(m * (1.0 - q) ** (-1.0 / alpha), alpha > 0, m > 0)
+
     def _sample(self, generator, shape, alpha, m):
         return m * torch.exp(standard_exponential(generator, shape, alpha) / alpha)
 
@@ -709,6 +752,9 @@ class Cauchy(Continuous):
     def _logcdf(self, value, alpha, beta):
         z = (value - alpha) / beta
         return check_parameters(torch.log(0.5 + torch.atan(z) / math.pi), beta > 0)
+
+    def _icdf(self, q, alpha, beta):
+        return check_icdf_parameters(alpha + beta * torch.tan(math.pi * (q - 0.5)), beta > 0)
 
     def _sample(self, generator, shape, alpha, beta):
         u = standard_uniform(generator, shape, alpha)
@@ -738,6 +784,9 @@ class HalfCauchy(Continuous):
         res = torch.log(2.0 * torch.atan(z) / math.pi)
         res = torch.where(value >= 0, res, -torch.inf)
         return check_parameters(res, beta > 0)
+
+    def _icdf(self, q, beta):
+        return check_icdf_parameters(beta * torch.tan(math.pi * q / 2.0), beta > 0)
 
     def _sample(self, generator, shape, beta):
         cauchy = torch.tan(math.pi * (standard_uniform(generator, shape, beta) - 0.5))
@@ -785,6 +834,11 @@ class Gamma(Continuous):
         res = safe_log(gammainc(alpha, beta * torch.clamp(value, min=0.0)))
         res = torch.where(value >= 0, res, -torch.inf)
         return check_parameters(res, alpha > 0, beta > 0)
+
+    def _icdf(self, q, alpha, beta):
+        res = icdf_bisection(lambda x: Gamma._logcdf(self, x, alpha, beta), q, support="positive",
+                             logpdf_fn=lambda x: Gamma._logp(self, x, alpha, beta))
+        return check_icdf_parameters(res, alpha > 0, beta > 0)
 
     def _sample(self, generator, shape, alpha, beta):
         return standard_gamma(generator, alpha.expand(shape)) / beta
@@ -834,6 +888,11 @@ class InverseGamma(Continuous):
         res = torch.where(value > 0, res, -torch.inf)
         return check_parameters(res, alpha > 0, beta > 0)
 
+    def _icdf(self, q, alpha, beta):
+        res = icdf_bisection(lambda x: self._logcdf(x, alpha, beta), q, support="positive",
+                             logpdf_fn=lambda x: self._logp(x, alpha, beta))
+        return check_icdf_parameters(res, alpha > 0, beta > 0)
+
     def _sample(self, generator, shape, alpha, beta):
         return beta / standard_gamma(generator, alpha.expand(shape))
 
@@ -856,6 +915,12 @@ class ChiSquared(Continuous):
 
     def _logcdf(self, value, nu):
         return Gamma._logcdf(self, value, nu / 2.0, torch.full_like(nu, 0.5))
+
+    def _icdf(self, q, nu):
+        # Gamma's quantile through Gamma's own densities: the JAX package's
+        # ChiSquared._icdf hands (nu / 2, 1 / 2) to ChiSquared._logcdf and
+        # raises TypeError
+        return Gamma._icdf(self, q, nu / 2.0, torch.full_like(nu, 0.5))
 
     def _sample(self, generator, shape, nu):
         return 2.0 * standard_gamma(generator, (nu / 2.0).expand(shape))
@@ -890,6 +955,10 @@ class Weibull(Continuous):
     def _logccdf(self, value, alpha, beta):
         z = torch.clamp(value, min=0.0) / beta
         return check_parameters(-(z**alpha), alpha > 0, beta > 0)
+
+    def _icdf(self, q, alpha, beta):
+        return check_icdf_parameters(beta * (-torch.log1p(-q)) ** (1.0 / alpha),
+                                     alpha > 0, beta > 0)
 
     def _sample(self, generator, shape, alpha, beta):
         return beta * standard_exponential(generator, shape, alpha) ** (1.0 / alpha)
@@ -1039,6 +1108,13 @@ class Triangular(Continuous):
         res = torch.where(value < lower, -torch.inf, torch.where(value >= upper, 0.0, res))
         return check_parameters(res, lower <= c, c <= upper, lower < upper)
 
+    def _icdf(self, q, lower, c, upper):
+        fc = (c - lower) / (upper - lower)
+        left = lower + torch.sqrt(q * (upper - lower) * (c - lower))
+        right = upper - torch.sqrt((1.0 - q) * (upper - lower) * (upper - c))
+        return check_icdf_parameters(torch.where(q < fc, left, right), lower <= c, c <= upper,
+                                     lower < upper)
+
     def _sample(self, generator, shape, lower, c, upper):
         q = standard_uniform(generator, shape, lower)
         fc = (c - lower) / (upper - lower)
@@ -1067,6 +1143,9 @@ class Gumbel(Continuous):
     def _logcdf(self, value, mu, beta):
         return check_parameters(-torch.exp(-(value - mu) / beta), beta > 0)
 
+    def _icdf(self, q, mu, beta):
+        return check_icdf_parameters(mu - beta * torch.log(-torch.log(q)), beta > 0)
+
     def _sample(self, generator, shape, mu, beta):
         return mu - beta * torch.log(standard_exponential(generator, shape, mu))
 
@@ -1090,6 +1169,9 @@ class Logistic(Continuous):
 
     def _logcdf(self, value, mu, s):
         return check_parameters(-softplus(-(value - mu) / s), s > 0)
+
+    def _icdf(self, q, mu, s):
+        return check_icdf_parameters(mu + s * (torch.log(q) - torch.log1p(-q)), s > 0)
 
     def _sample(self, generator, shape, mu, s):
         u = standard_uniform(generator, shape, mu)
@@ -1122,6 +1204,9 @@ class LogitNormal(Continuous):
         res = normal_lcdf(mu, sigma, torch.logit(safe))
         res = torch.where(value <= 0, -torch.inf, torch.where(value >= 1, 0.0, res))
         return check_parameters(res, sigma > 0)
+
+    def _icdf(self, q, mu, sigma):
+        return check_icdf_parameters(torch.sigmoid(mu + sigma * torch.special.ndtri(q)), sigma > 0)
 
     def _sample(self, generator, shape, mu, sigma):
         return torch.sigmoid(mu + sigma * standard_normal(generator, shape, mu))
@@ -1183,6 +1268,11 @@ class Moyal(Continuous):
         return check_parameters(torch.log(torch.special.erfc(torch.exp(-0.5 * z) / _SQRT_2)),
                                 sigma > 0)
 
+    def _icdf(self, q, mu, sigma):
+        # erfc(exp(-z / 2) / sqrt 2) = q solved for z
+        z = -2.0 * torch.log(_SQRT_2 * torch.special.erfinv(1.0 - q))
+        return check_icdf_parameters(mu + sigma * z, sigma > 0)
+
     def _sample(self, generator, shape, mu, sigma):
         # the inverse cdf at U(tiny, 1)
         u = torch.clamp(standard_uniform(generator, shape, mu), min=torch.finfo(mu.dtype).tiny)
@@ -1243,6 +1333,9 @@ class Interpolated(Continuous):
 
     def _logcdf(self, value, x, pdf, cdf):
         return safe_log(interp(value, x, cdf))
+
+    def _icdf(self, q, x, pdf, cdf):
+        return interp(q, cdf, x)
 
     def _sample(self, generator, shape, x, pdf, cdf):
         return interp(standard_uniform(generator, shape, x), cdf, x)

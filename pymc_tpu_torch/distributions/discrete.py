@@ -11,7 +11,8 @@ and `torch.poisson`, NegativeBinomial as a gamma-Poisson mixture, the
 categorical ones by the Gumbel-max trick, DiscreteWeibull and Geometric
 by inverting a uniform. A discrete free variable cannot be sampled with
 NUTS (its step methods are not ported): these classes serve observed data,
-forward sampling and the mixtures. `_icdf` is not ported yet.
+forward sampling and the mixtures. Bernoulli, Geometric and
+DiscreteUniform have the JAX package's `_icdf`, an integer-valued float.
 """
 
 from __future__ import annotations
@@ -24,8 +25,8 @@ import torch
 
 from ..graph import DeterministicNode, Node, apply
 from .dist_math import (
-    betainc, betaln, binomln, check_parameters, factln, gammaincc, log1mexp, logpow,
-    normal_lcdf, safe_log, softplus,
+    betainc, betaln, binomln, check_icdf_parameters, check_parameters, factln, gammaincc,
+    log1mexp, logpow, normal_lcdf, safe_log, softplus,
 )
 from .continuous import standard_exponential, standard_gamma
 from .distribution import Discrete, as_param, standard_uniform
@@ -173,6 +174,10 @@ class Bernoulli(Discrete):
         res = torch.where(value >= 1, 0.0, safe_log(1.0 - p))
         res = torch.where(value < 0, -torch.inf, res)
         return check_parameters(res, p >= 0, p <= 1)
+
+    def _icdf(self, q, p):
+        return check_icdf_parameters(torch.where(q <= 1.0 - p, 0.0, 1.0).to(q.dtype),
+                                     p >= 0, p <= 1)
 
     def _sample(self, generator, shape, p):
         return standard_uniform(generator, shape, p) < p
@@ -352,6 +357,14 @@ class Geometric(Discrete):
             return res
         return check_parameters(res, p > 0, p <= 1)
 
+    def _icdf(self, q, p):
+        # ceil with a step back where float error lands just above the
+        # integer (reference discrete.py:844)
+        res = torch.ceil(torch.log1p(-q) / torch.log1p(-p))
+        res_1m = torch.clamp(res - 1.0, min=1.0)
+        res = torch.where(torch.exp(self._logcdf(res_1m, p)) >= q, res_1m, res)
+        return check_icdf_parameters(res, p > 0, p <= 1)
+
     def _sample(self, generator, shape, p):
         u = standard_uniform(generator, shape, p)
         return torch.clamp(torch.ceil(torch.log1p(-u) / torch.log1p(-p)), min=1.0)
@@ -413,6 +426,14 @@ class DiscreteUniform(Discrete):
         res = torch.log(frac)
         res = torch.where(v < lower, -torch.inf, torch.where(v >= upper, 0.0, res))
         return check_parameters(res, lower <= upper)
+
+    def _icdf(self, q, lower, upper):
+        # ceil with a step back against float error at the boundaries
+        # (reference discrete.py:1084)
+        res = lower + torch.ceil(q * (upper - lower + 1.0)) - 1.0
+        res_1m = torch.maximum(res - 1.0, lower)
+        res = torch.where(torch.exp(self._logcdf(res_1m, lower, upper)) >= q, res_1m, res)
+        return check_icdf_parameters(res, lower <= upper)
 
     def _sample(self, generator, shape, lower, upper):
         u = standard_uniform(generator, shape, lower)

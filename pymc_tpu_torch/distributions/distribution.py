@@ -8,12 +8,13 @@ are resolved through the evaluation env, so a model's joint logp stays one
 function of tensors.
 
 Subclasses define `param_names`, `support`, `__dist_init__`, `_logp`,
-`_sample` and `_support_point`, and `_logcdf` where the JAX class has one;
+`_sample` and `_support_point`, and `_logcdf` and `_icdf` where the JAX
+class has them;
 a multivariate one also sets `param_event_ndims` and `event_ndim` and
 defines `_event_shape` (reference distribution.py:87-111). A class with an
 "interval" support defines `_interval_bounds`, which its default transform
 reads. Draws take an explicit `torch.Generator` on the device of the
-parameters, and come in their float type. `icdf` is not ported yet.
+parameters, and come in their float type.
 """
 
 from __future__ import annotations
@@ -24,7 +25,7 @@ import torch
 from ..config import intX
 from ..graph import Node, apply, as_node, evaluate
 from . import transforms as tr
-from .dist_math import log1mexp
+from .dist_math import check_icdf_value, log1mexp
 
 __all__ = ["Distribution", "Continuous", "Discrete", "UNSET"]
 
@@ -120,8 +121,10 @@ class Distribution:
         obj = object.__new__(cls)
         if isinstance(shape, (int, np.integer)):
             shape = (int(shape),)
+        # the requested shape, which a time series reads its steps from
+        obj._shape_arg = None if shape is None else tuple(shape)
         obj.__dist_init__(*args, **kwargs)
-        obj._resolve_shapes(None if shape is None else tuple(shape))
+        obj._resolve_shapes(obj._shape_arg)
         return obj
 
     def _resolve_shapes(self, shape):
@@ -223,11 +226,18 @@ class Distribution:
         raise NotImplementedError
 
     def icdf(self, q, env=None, memo=None):
-        """The quantile function: not ported yet (ROADMAP.md §1, distribution breadth)."""
-        raise NotImplementedError(
-            f"icdf of {type(self).__name__} is not ported yet (ROADMAP.md §1, the item on "
-            "distribution breadth: _icdf and icdf_bisection)"
-        )
+        """The quantile function at `q`, cast to the parameters' float type
+        and device; NaN for q outside [0, 1] (`pymc_tpu/distributions/
+        distribution.py:383-388`)."""
+        memo = {} if memo is None else memo
+        params = self.resolve_params(env, memo)
+        floats = [p for p in params if p is not None and p.is_floating_point()]
+        q = torch.as_tensor(q)
+        q = q.to(floats[0]) if floats else q.to(torch.float64)
+        return check_icdf_value(self._icdf(q, *params), q)
+
+    def _icdf(self, q, *params):
+        raise NotImplementedError(f"icdf not implemented for {type(self).__name__}")
 
     def sample(self, generator, sample_shape=(), env=None, memo=None):
         """Draws of shape sample_shape + self.shape from `generator` (a

@@ -5,13 +5,12 @@ pymc/logprob/basic.py:105,206,307,372 pm.logp, pm.logcdf, pm.logccdf,
 pm.icdf, and pymc/sampling/forward.py:397 pm.draw): each dispatches on a
 Distribution or a random-variable node.
 
-Left out against the JAX package, each raising NotImplementedError with the
-ROADMAP item it waits for: `icdf` (the item on distribution breadth:
-`_icdf` and `icdf_bisection`), and the density of a derived expression, an
-invertible elementwise transform of one random variable (the item on the
-logprob engine, `distributions/transformed.py`). `draw` of an expression
-(a Deterministic) works: its random ancestors are drawn and it is
-evaluated.
+Left out against the JAX package, raising NotImplementedError with the
+ROADMAP item it waits for: the density, cdf or quantile of a derived
+expression, an invertible elementwise transform of one random variable
+(the item on the logprob engine, `distributions/transformed.py`). `draw`
+of an expression (a Deterministic) works: its random ancestors are drawn
+and it is evaluated.
 """
 
 from __future__ import annotations
@@ -71,10 +70,9 @@ def logccdf(rv, value, env=None, memo=None):
 
 
 def icdf(rv, q, env=None, memo=None):
-    """The quantile function of `rv` at `q`: raises until `_icdf` is
-    ported (the ROADMAP item on distribution breadth)."""
+    """The quantile function of `rv` at `q`; NaN for q outside [0, 1]."""
     dist = _dist_of(rv)
-    return dist.icdf(q, env, memo)
+    return dist.icdf(q, env, _memo(dist, q, memo))
 
 
 def draw(rv, draws=1, random_seed=None, device=None):

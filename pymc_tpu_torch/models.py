@@ -23,7 +23,13 @@ multilevel-modeling primer's "Covariation between intercepts and slopes":
 an LKJ Cholesky prior on the county effects) on `bench.build_model`'s data,
 and `lkj_corr_prior_model` an LKJ prior on a correlation matrix alone, whose
 moments are known exactly; `multivariate_model` builds one small model
-for each of the other classes of the multivariate slice. Each model
+for each of the other classes of the multivariate slice.
+`survival_model` is `examples/survival_analysis.py` (a Weibull regression
+on 500 subjects, right-censored at t = 4 through `Censored`) and
+`stochastic_volatility_model` `examples/stochastic_volatility.py` (a
+200-step GaussianRandomWalk log-volatility under StudentT returns), each
+on the example's own data and seed; `timeseries_model` builds one small
+model for each time-series class. Each model
 function takes the
 package to build with (`pymc_tpu_torch` by default), so the reference
 package builds the same model from the same data. The radon GLM's builder
@@ -53,6 +59,10 @@ __all__ = [
     "lkj_radon_scalars",
     "lkj_corr_prior_model", "LKJ_CORR_SAMPLE_KWARGS", "MULTIVARIATE_MODELS",
     "multivariate_model", "MV_RING", "MV_ROWCOV", "MV_COLCOV",
+    "survival_data", "survival_model", "SURVIVAL_SAMPLE_KWARGS", "SURVIVAL_SMOKE_KWARGS",
+    "SURVIVAL_SCALARS", "SURVIVAL_TRUTH",
+    "stochastic_volatility_data", "stochastic_volatility_model", "SV_SAMPLE_KWARGS",
+    "SV_SMOKE_KWARGS", "SV_SCALARS", "TIMESERIES_MODELS", "timeseries_model", "TS_COV",
 ]
 
 # bench.py's many-chain configuration (pooled mass and step, target_accept
@@ -364,11 +374,12 @@ def mixture_model(pm=None):
 # case_best's keyword arguments to `sample` at its accelerator chain count
 # (512 chains, pooled mass as the suite sets from 64 chains on)
 BEST_SAMPLE_KWARGS = dict(chains=512, tune=1000, draws=5000, random_seed=0, mass_adapt="pooled")
-# chip_smoke.py phase 11a's, cut in depth to draws 1000: uncut, the phase
-# took 159.0 s on the H100 (25 ms a draw), at draws 2000 92.7 to 110.5 s;
-# the second cut makes room for phase 13 (min bulk ESS at 2000 draws was
-# 658,180, so a mean's MCSE stays far below the fixture's)
-BEST_SMOKE_KWARGS = dict(BEST_SAMPLE_KWARGS, draws=1000)
+# chip_smoke.py phase 11a's, cut in depth to tune 300 / draws 300: uncut,
+# the phase took 159.0 s on the H100 (25 ms a draw), at draws 2000 92.7 to
+# 110.5 s; the later cuts (draws 1000, then tune and draws 300) make room
+# for phases 13 and 15 (min bulk ESS at 2000 draws was 658,180, so a
+# mean's MCSE stays far below the fixture's)
+BEST_SMOKE_KWARGS = dict(BEST_SAMPLE_KWARGS, tune=300, draws=300)
 BEST_SCALARS = ("group1_mean", "group2_mean", "group1_std", "group2_std", "nu_minus_one",
                 "difference of means")
 
@@ -417,7 +428,8 @@ def best_model(pm=None):
 BINOMIAL_SAMPLE_KWARGS = dict(chains=64, tune=1000, draws=1000, random_seed=0,
                               mass_adapt="pooled")
 # chip_smoke.py phase 11b's, cut in depth to 500/500 to make room for phase
-# 14 within the script's time limit (PERF.md §4)
+# 14 within the script's time limit (at 300/300 its max R-hat read 1.0444,
+# too near 1.05; PERF.md §6)
 BINOMIAL_SMOKE_KWARGS = dict(BINOMIAL_SAMPLE_KWARGS, tune=500, draws=500)
 BINOMIAL_SCALARS = ("phi", "kappa_log", "kappa")
 
@@ -663,4 +675,176 @@ def multivariate_model(name, pm=None):
         import pymc_tpu_torch as pm
     with pm.Model() as model:
         MULTIVARIATE_MODELS[name](pm)
+    return model
+
+
+# examples/survival_analysis.py samples 4 chains, tune 800, draws 800, seed 1
+SURVIVAL_SAMPLE_KWARGS = dict(chains=4, tune=800, draws=800, random_seed=1)
+# chip_smoke.py phase 15a's: 64 chains in lock-step with a pooled mass
+SURVIVAL_SMOKE_KWARGS = dict(chains=64, tune=250, draws=150, random_seed=0, mass_adapt="pooled")
+SURVIVAL_SCALARS = ("alpha", "b0", "b1")
+# the example's true Weibull shape and log-scale regression
+SURVIVAL_TRUTH = {"alpha": 1.6, "b0": 1.2, "b1": -0.6}
+
+
+def survival_data(n=500, seed=7, t_end=4.0):
+    """(x, observed times, censored mask, t_end) of
+    `examples/survival_analysis.py:16-28`: event times Weibull(1.6) scaled
+    by exp(1.2 - 0.6 x), right-censored at t_end."""
+    rng = np.random.default_rng(seed)
+    x = rng.normal(0, 1, n)
+    t_event = np.exp(1.2 - 0.6 * x) * rng.weibull(1.6, n)
+    return x, np.minimum(t_event, t_end), t_event > t_end, t_end
+
+
+def survival_model(pm=None):
+    """alpha ~ Gamma(2, 1), b0, b1 ~ Normal(0, 2); t ~ Censored(Weibull(
+    alpha, exp(b0 + b1 x)), upper=4) on `survival_data()`
+    (`examples/survival_analysis.py:30-40`). 3 free values."""
+    if pm is None:
+        import pymc_tpu_torch as pm
+    x, observed_t, _, t_end = survival_data()
+    with pm.Model() as model:
+        alpha = pm.Gamma("alpha", alpha=2.0, beta=1.0)
+        b0 = pm.Normal("b0", 0.0, 2.0)
+        b1 = pm.Normal("b1", 0.0, 2.0)
+        lam = pm.math.exp(b0 + b1 * x)
+        pm.Censored("t", pm.Weibull.dist(alpha=alpha, beta=lam), lower=None, upper=t_end,
+                    observed=observed_t)
+    return model
+
+
+# examples/stochastic_volatility.py samples 4 chains, tune 1000, draws 1000,
+# seed 1, at target_accept 0.95
+SV_SAMPLE_KWARGS = dict(chains=4, tune=1000, draws=1000, random_seed=1, target_accept=0.95)
+# chip_smoke.py phase 15b's: lock-step chains pay for the deepest tree of
+# any chain at every draw (some 270 leapfrogs at 8 chains on the H100, 0.35
+# ms each), so 8 chains and a short run; at tune 300 the R-hats of
+# step_sigma / h read 1.208 / 1.049 at 350 draws, 1.117 / 1.035 at 450,
+# 1.072 / 1.023 at 500 and 1.061 / 1.016 at 600 (PERF.md §6)
+SV_SMOKE_KWARGS = dict(chains=8, tune=300, draws=500, random_seed=0, target_accept=0.95,
+                       mass_adapt="pooled")
+SV_SCALARS = ("step_sigma", "nu")
+
+
+def stochastic_volatility_data(T=200, seed=8):
+    """(returns, true log-volatility) of `examples/stochastic_volatility.py:
+    14-17`: a Gaussian random walk h with steps of sd 0.12 from -1, and
+    Student-t(6) returns scaled by exp(h)."""
+    rng = np.random.default_rng(seed)
+    true_h = np.cumsum(rng.normal(0, 0.12, T)) - 1.0
+    returns = rng.standard_t(6, T) * np.exp(true_h)
+    return returns, true_h
+
+
+def stochastic_volatility_model(pm=None):
+    """step_sigma ~ Exponential(10), nu ~ Exponential(0.1); h ~
+    GaussianRandomWalk(0, step_sigma, 199 steps, init Normal(0, 1)); vol =
+    exp(h); r ~ StudentT(nu, 0, vol) on `stochastic_volatility_data()`
+    (`examples/stochastic_volatility.py:19-27`). 202 free values."""
+    if pm is None:
+        import pymc_tpu_torch as pm
+    returns, _ = stochastic_volatility_data()
+    T = len(returns)
+    with pm.Model() as model:
+        step_sigma = pm.Exponential("step_sigma", 10.0)
+        nu = pm.Exponential("nu", 0.1)
+        h = pm.GaussianRandomWalk("h", mu=0.0, sigma=step_sigma, steps=T - 1,
+                                  init_dist=pm.Normal.dist(0.0, 1.0))
+        vol = pm.Deterministic("vol", pm.math.exp(h))
+        pm.StudentT("r", nu=nu, mu=0.0, sigma=vol, observed=returns)
+    return model
+
+
+TS_COV = np.array([[1.0, 0.3], [0.3, 0.5]])
+# short observed series: three of eight steps
+TS_OBS = np.random.default_rng(5).normal(0.0, 1.0, size=(3, 8)).cumsum(-1) * 0.3
+
+
+def _ts_random_walk(pm, mu, s, sde_fn):
+    pm.RandomWalk("x", innovation_dist=pm.Laplace.dist(mu, s),
+                  init_dist=pm.Normal.dist(0.0, 2.0), steps=6)
+    pm.RandomWalk("y", innovation_dist=pm.Normal.dist(mu, s),
+                  init_dist=pm.Normal.dist(0.0, 2.0), observed=TS_OBS)
+
+
+def _ts_gaussian_random_walk(pm, mu, s, sde_fn):
+    pm.GaussianRandomWalk("x", mu=mu, sigma=s, init_dist=pm.Normal.dist(0.0, 2.0), steps=6)
+    pm.GaussianRandomWalk("y", mu=mu, sigma=s, init_dist=pm.Normal.dist(mu, 2.0),
+                          observed=TS_OBS)
+
+
+def _ts_mv_gaussian_random_walk(pm, mu, s, sde_fn):
+    # one Cholesky a logp+grad: x's innovation covariance; the inits and
+    # y's innovations come as factors
+    m2 = pm.Normal("m2", 0.0, 1.0, shape=2)
+    pm.MvGaussianRandomWalk("x", mu=m2, cov=TS_COV, steps=5,
+                            init_dist=pm.MvNormal.dist(np.zeros(2), chol=np.eye(2)))
+    pm.MvGaussianRandomWalk("y", mu=m2, chol=np.linalg.cholesky(TS_COV),
+                            init_dist=pm.MvNormal.dist(np.zeros(2), chol=np.eye(2)),
+                            observed=TS_OBS.reshape(4, 3, 2))
+
+
+def _ts_mv_student_t_random_walk(pm, mu, s, sde_fn):
+    nu = pm.Gamma("nu", 4.0, 1.0)
+    pm.MvStudentTRandomWalk("x", nu=nu, mu=np.zeros(2), scale=TS_COV, steps=5,
+                            init_dist=pm.MvNormal.dist(np.zeros(2), cov=TS_COV))
+
+
+def _ts_ar(pm, mu, s, sde_fn):
+    rho = pm.Normal("rho", 0.0, 0.4, shape=2)
+    pm.AR("x", rho=rho, sigma=s, init_dist=pm.Normal.dist(0.0, 1.0, shape=(2,)), steps=6)
+    pm.AR("y", rho=rho, sigma=s, init_dist=pm.Normal.dist(0.0, 1.0, shape=(2,)),
+          observed=TS_OBS)
+
+
+def _ts_ar_constant(pm, mu, s, sde_fn):
+    rho = pm.Normal("rho", 0.0, 0.4, shape=2)
+    pm.AR("x", rho=rho, sigma=s, constant=True, init_dist=pm.Normal.dist(0.0, 1.0), steps=6)
+    pm.AR("z", rho=rho, sigma=s, constant=True, ar_order=1,
+          init_dist=pm.MvNormal.dist(np.zeros(1), cov=np.eye(1)), observed=TS_OBS)
+
+
+def _ts_garch11(pm, mu, s, sde_fn):
+    a1 = pm.Beta("a1", 2.0, 5.0)
+    b1 = pm.Beta("b1", 2.0, 3.0)
+    pm.GARCH11("x", omega=s, alpha_1=a1, beta_1=b1, initial_vol=1.2, steps=9)
+    pm.GARCH11("y", omega=s, alpha_1=a1, beta_1=b1, initial_vol=0.8, observed=TS_OBS)
+
+
+def _ts_euler_maruyama(pm, mu, s, sde_fn):
+    k = pm.HalfNormal("k", 1.0)
+    pm.EulerMaruyama("x", dt=0.1, sde_fn=sde_fn, sde_pars=(k,),
+                     init_dist=pm.Normal.dist(0.0, 1.0), steps=7)
+    pm.EulerMaruyama("y", dt=0.1, sde_fn=sde_fn, sde_pars=(k,),
+                     init_dist=pm.Normal.dist(mu, 1.0), observed=TS_OBS)
+
+
+TIMESERIES_MODELS = {
+    "RandomWalk": _ts_random_walk,
+    "GaussianRandomWalk": _ts_gaussian_random_walk,
+    "MvGaussianRandomWalk": _ts_mv_gaussian_random_walk,
+    "MvStudentTRandomWalk": _ts_mv_student_t_random_walk,
+    "AR": _ts_ar,
+    "AR constant": _ts_ar_constant,
+    "GARCH11": _ts_garch11,
+    "EulerMaruyama": _ts_euler_maruyama,
+}
+
+
+def timeseries_model(name, pm=None, sde_fn=None):
+    """mu ~ Normal(0, 1), s ~ HalfNormal(1), and the class `name` of
+    TIMESERIES_MODELS as a free variable whose parameters are free
+    variables, and (all but MvStudentTRandomWalk) as observed data whose
+    shape gives the steps. EulerMaruyama's sde_fn (x, k) -> (f, g) defaults
+    to dx = -k tanh(x) dt + (0.3 + 0.1 x^2) dW through `pm.math`."""
+    if pm is None:
+        import pymc_tpu_torch as pm
+    if sde_fn is None:
+        def sde_fn(x, k):
+            return -k * pm.math.tanh(x), 0.3 + 0.1 * x**2
+    with pm.Model() as model:
+        mu = pm.Normal("mu", 0.0, 1.0)
+        s = pm.HalfNormal("s", 1.0)
+        TIMESERIES_MODELS[name](pm, mu, s, sde_fn)
     return model

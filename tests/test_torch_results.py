@@ -354,11 +354,18 @@ def test_functional_densities_of_model_variables():
 
 
 def test_icdf_and_derived_densities_raise():
-    mt = normal_model(pmt)
-    with pytest.raises(NotImplementedError, match="distribution breadth"):
-        pmt.icdf(pmt.Normal.dist(0.0, 1.0), np.array([0.5]))
+    # named when pm.icdf raised too; now its quantiles match pymc_tpu's,
+    # and only a derived expression's density or quantile raises
+    mt, mj = normal_model(pmt), normal_model(pmj)
+    q = np.array([0.1, 0.5, 0.9])
+    np.testing.assert_allclose(_np(pmt.icdf(pmt.Normal.dist(0.0, 1.0), q)),
+                               np.asarray(pmj.icdf(pmj.Normal.dist(0.0, 1.0), q)), rtol=1e-12)
+    np.testing.assert_allclose(_np(pmt.icdf(mt["sigma"], q)), np.asarray(pmj.icdf(mj["sigma"], q)),
+                               rtol=1e-12)
     with pytest.raises(NotImplementedError, match="logprob engine"):
         pmt.logp(mt["shifted"], np.array([1.0]))
+    with pytest.raises(NotImplementedError, match="logprob engine"):
+        pmt.icdf(mt["shifted"], q)
 
 
 def _z(got, ref):
