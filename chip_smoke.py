@@ -231,6 +231,37 @@ Phases, in order; any failure ends the script with a non-zero exit:
                 (the bisection) and Poisson (the integer scan) draws within
                 5 standard errors of the exact truncated moments; and
                 every class's quantiles on the card against the CPU
+  16. custom  — CustomDist, Simulator, the derived densities, the Bessel
+                functions and nested models: 16a. models.radon_custom_model
+                (bench.build_model's radon GLM inside pm.Model(name=
+                "radon"), its likelihood a CustomDist with the Normal
+                log-density by hand) at RADON_SAMPLE_KWARGS: every name
+                carries "radon::", phase 5's launch identities and no
+                Cholesky, R-hat < 1.05, the means within 5 combined MCSE
+                of tests/data/torch_radon_reference.json; and
+                bench.build_model inside pm.Model(name="radon") (its own
+                unnamed model a sub-model) gives a logp+grad bitwise equal
+                to the flat model's; 16b. examples/abc_simulator.py's model
+                (models.abc_simulator_model) through sample_smc at the
+                example's 1,000 draws x 2 chains: every chain at beta = 1,
+                one Cholesky launch a stage and no other kernel, the mean
+                of mu within 5 seed-to-seed sds of
+                tests/data/torch_abc_reference.json (pymc_tpu over 5
+                seeds), and two evaluations of the tempered density at the
+                same particles simulate anew; 16c. models.derived_model (a
+                rounded Normal through Discretized, the maxima of five
+                Normals through Max) at models.DERIVED_SMOKE_KWARGS, as
+                phase 11 checks a model, against tests/data/
+                torch_derived_reference.json; 16d. each model of
+                models.SLICE_MODELS and 16a's and 16c's: logp/grad on the
+                card against the CPU in float64 and the logp+grad captured
+                in a CUDA graph, bitwise equal to the eager call (no
+                capture failure logged since phase 16 began); bessel_iv and
+                bessel_kv and their gradients in x over orders -2.5 to 30
+                and x from 1e-3 to 1e3, in float64 on the card against the
+                CPU and in float32 against the CPU in float32 (the series
+                cut depends on the float type); moments.mean of ten
+                families on the card against the CPU in float64
 
 Phase 3 also checks and times the Cholesky at SMC's (4, 3) stack, at
 phase 9's shapes and at phase 10's (1, 175) and (1, 150), and its jvp under
@@ -347,7 +378,8 @@ RTOL_KE = {torch.float32: 1e-5, torch.float64: 1e-12}
 SCALARS = ("mu_a", "mu_b", "sigma_a", "sigma_b", "sigma_y")
 # (C, n, dtype): the GP path's stack first, then edges of the kernel's range
 # and the other paths' stacks (phase 15c's (2, 2) innovation covariance, one
-# matrix a logp+grad, and a chain-batched stack of it);
+# matrix a logp+grad, and a chain-batched stack of it; phase 16b's (2, 1, 1)
+# particle covariances, one a chain);
 # the tiles of a matrix stay in shared memory up to n = 320 (float32) and
 # n = 224 (float64), beyond that in a device workspace
 CHOL_SHAPES = [
@@ -360,7 +392,7 @@ CHOL_SHAPES = [
     (2, 300, torch.float64), (12800, 150, torch.float32), (12800, 100, torch.float32),
     (64, 20, torch.float32), (64, 15, torch.float32), (64, 10, torch.float32),
     (1, 2, torch.float32), (1, 2, torch.float64), (64, 2, torch.float32),
-    (64, 2, torch.float64),
+    (64, 2, torch.float64), (2, 1, torch.float32), (2, 1, torch.float64),
 ]
 # (C, n) timed in float32, the GP path's first, SMC's particle covariances
 # last; indefinite batches at these n
@@ -553,10 +585,10 @@ def build_kernels():
 
 
 def sampled_shapes():
-    """The (chains, D) that phases 5, 6 and 15 hand the leapfrog kernels:
-    radon, the marginal GP, the survival example (15a), the
-    stochastic-volatility example (15b) and the MvGaussianRandomWalk model
-    (15c)."""
+    """The (chains, D) that phases 5, 6, 15 and 16 hand the leapfrog
+    kernels: radon (and 16a's), the marginal GP, the survival example
+    (15a), the stochastic-volatility example (15b), the
+    MvGaussianRandomWalk model (15c) and the derived model (16c)."""
     import pymc_tpu_torch as pm
     from pymc_tpu_torch import models
 
@@ -571,6 +603,7 @@ def sampled_shapes():
          models.stochastic_volatility_model().raveled_info().total_size),
         (TS_MV_SAMPLE_KWARGS["chains"],
          models.timeseries_model("MvGaussianRandomWalk").raveled_info().total_size),
+        (models.DERIVED_SMOKE_KWARGS["chains"], models.derived_model().raveled_info().total_size),
     ]
     return list(dict.fromkeys(shapes))  # the GP's (64, 3) is the survival model's too
 
@@ -1264,11 +1297,11 @@ def check_graphed_logp(card):
                       must_capture=label in ("BEST", "hierarchical binomial"))
 
 
-def check_graphed(label, model, chains, card, must_capture):
+def check_graphed(label, model, chains, card, must_capture, calls=30):
     """The model's logp+grad replayed from a CUDA graph against the eager
     call at (chains, D): outputs bitwise equal over five inputs, the same
-    Cholesky launches; host ms a call of both (30 calls, synchronised at the
-    end); with must_capture, every shape captured."""
+    Cholesky launches; host ms a call of both (`calls` calls, synchronised
+    at the end); with must_capture, every shape captured."""
     from pymc_tpu_torch.ops import linalg as la
 
     D = model.raveled_info().total_size
@@ -1284,10 +1317,10 @@ def check_graphed(label, model, chains, card, must_capture):
         torch.cuda.synchronize()
         launches[name] = la.cholesky_batched.launches
         t0 = time.perf_counter()
-        for i in range(30):
+        for i in range(calls):
             fn(qs[i % 5])
         torch.cuda.synchronize()
-        ms[name] = (time.perf_counter() - t0) / 30 * 1e3
+        ms[name] = (time.perf_counter() - t0) / calls * 1e3
     same = all(torch.equal(a, b) for o, r in zip(outs["graphed"], outs["eager"])
                for a, b in zip(o, r))
     captured = all(g.graph is not None for g in graphed.graphs.values())
@@ -3207,6 +3240,242 @@ def run_timeseries(card):
     return {"survival": survival, "stochastic volatility": sv, "MvGaussianRandomWalk": mv_walk}
 
 
+ABC_REFERENCE = os.path.join(ROOT, "tests", "data", "torch_abc_reference.json")
+DERIVED_REFERENCE = os.path.join(ROOT, "tests", "data", "torch_derived_reference.json")
+# 16b: the mean of mu is held within this many of pymc_tpu's seed-to-seed
+# standard deviations of its mean (over 5 seeds) of pymc_tpu's mean
+ABC_Z = 5.0
+# 16d: the Bessel functions' grid, and the relative tolerances of values and
+# gradients: float64 on the card against the CPU; float32 on the card against
+# float32 on the CPU (the series cut is 25 in float64 and 12 in float32, and
+# the 12-term asymptotic expansion is far off at high order below x = 25, as
+# in the JAX package, so float32 is compared with itself)
+BESSEL_ORDERS = np.array([-2.5, -1.5, -0.7, 0.0, 0.5, 1.0, 1.5, 2.5, 7.3, 15.0, 30.0])
+BESSEL_X = np.geomspace(1e-3, 1e3, 31)
+BESSEL_RTOL = {torch.float64: (1e-10, 1e-8), torch.float32: (5e-4, 5e-4)}
+
+
+def run_custom_radon(card, failures):
+    """Phase 16a: the nested bench.build_model against the flat one, then
+    models.radon_custom_model sampled on the card at RADON_SAMPLE_KWARGS
+    and checked. Returns {kernel: launches}."""
+    import pymc_tpu_torch as pm
+    from pymc_tpu_torch import models
+
+    phase("16a radon with a CustomDist likelihood inside pm.Model(name='radon')")
+    t0 = time.perf_counter()
+    flat = bench_module().build_model(pm)
+    with pm.Model(name="radon") as outer:
+        bench_module().build_model(pm)
+    D = flat.raveled_info().total_size
+    names = list(outer.named_vars)
+    if not all(n.startswith("radon::") for n in names) or outer.raveled_info().total_size != D:
+        raise AssertionError(f"16a: nested model's names {names[:4]}... or layout differ")
+    q = torch.as_tensor(np.random.default_rng(0).normal(0.0, 0.5, size=(64, D)), device="cuda",
+                        dtype=torch.float32)
+    (lp_f, g_f), (lp_n, g_n) = (m.logp_dlogp_fn(device="cuda")(q) for m in (flat, outer))
+    same = torch.equal(lp_f, lp_n) and torch.equal(g_f, g_n)
+    print(f"radon inside pm.Model(name='radon'): {len(names)} names, all 'radon::'; logp+grad "
+          f"at (64, {D}) bitwise equal to the flat model's {same}")
+    if not same:
+        raise AssertionError("16a: the nested radon model's logp+grad differs from the flat one")
+    config = models.RADON_SAMPLE_KWARGS
+    idata, launches = sample_counted(models.radon_custom_model(), config)
+    post = idata.posterior
+    keys = list(post.keys())
+    if not keys or not all(k.startswith("radon::") for k in keys):
+        raise AssertionError(f"16a: posterior names {keys} lack the 'radon::' prefix")
+    check_launch_identities("radon CustomDist (16a)", post.attrs, launches)
+    if launches["cholesky"]:
+        raise AssertionError(f"16a: {launches['cholesky']} Cholesky launches")
+    if post[keys[0]].shape[:2] != (config["chains"], config["draws"]):
+        raise AssertionError(f"16a: {keys[0]} has shape {post[keys[0]].shape}")
+    sampling_summary("radon CustomDist (16a)", idata,
+                     [f"radon::{n}" for n in models.RADON_SCALARS], card)
+    check_means("radon CustomDist (16a)", {k.removeprefix("radon::"): post[k] for k in keys},
+                models.RADON_SCALARS, REFERENCE)
+    if failures.messages:
+        raise AssertionError(f"16a: {failures.messages}")
+    print(f"16a wall {time.perf_counter() - t0:.1f} s; leapfrogs a draw "
+          f"{leapfrogs_per_draw(idata, config):.1f}")
+    return launches
+
+
+def run_abc(card, failures):
+    """Phase 16b: examples/abc_simulator.py's model through sample_smc on
+    the card, checked against pymc_tpu over 5 seeds, and the tempered
+    density's simulations drawn anew at every evaluation. Returns {kernel:
+    launches}."""
+    import pymc_tpu_torch as pm
+    from pymc_tpu_torch import models
+    from pymc_tpu_torch.smc.sampling import tempered_density
+
+    phase("16b ABC: examples/abc_simulator.py's Simulator through sample_smc")
+    with open(ABC_REFERENCE) as f:
+        ref = json.load(f)["mu"]
+    model = models.abc_simulator_model()
+    t0 = time.perf_counter()
+    idata, launches = sample_counted(
+        model, dict(models.ABC_SMC_KWARGS, random_seed=0, progressbar=False), pm.sample_smc)
+    wall = time.perf_counter() - t0
+    attrs, stats = idata.posterior.attrs, idata.sample_stats
+    stages = attrs["n_stages"]
+    mu = idata.posterior["mu"].values.astype(np.float64)
+    z = (float(mu.mean()) - ref["mean"]) / ref["seed_sd"]
+    print(f"ABC: wall {wall:.3f} s (stage loop {attrs['sampling_time']:.3f} s); {stages} stages; "
+          f"sweeps a stage {np.array(attrs['n_steps_history']).max(axis=1).tolist()}; mu mean "
+          f"{mu.mean():.5f}, sd {mu.std():.5f} (pymc_tpu {ref['mean']:.5f} over 5 seeds, "
+          f"seed-to-seed sd {ref['seed_sd']:.5f}: {z:+.2f} of them); launches {launches}  "
+          f"[{card}]")
+    expect = {"kick_drift": 0, "final_kick": 0, "nuts_leaf": 0, "cholesky": stages}
+    if not stages or launches != expect:
+        raise AssertionError(f"16b: launches {launches} != expected {expect}")
+    if not (stats["beta"].values == 1.0).all() or not np.isfinite(mu).all():
+        raise AssertionError("16b: a chain short of beta = 1, or non-finite particles")
+    if attrs["device"] != "cuda":
+        raise AssertionError(f"16b ran on {attrs['device']}")
+    if not abs(z) <= ABC_Z:
+        raise AssertionError(f"16b: mu's mean is {z:+.2f} seed-to-seed sds off pymc_tpu's")
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    density = tempered_density(model, "cuda", torch.float32, gen)
+    q = torch.full((8, 1), float(mu.mean()), device="cuda")
+    first, second = density(q)[1], density(q)[1]
+    print(f"ABC tempered density at 8 equal particles, two calls: {first.tolist()} / "
+          f"{second.tolist()}")
+    if torch.equal(first, second) or len(set(first.tolist())) < 8:
+        raise AssertionError("16b: the tempered density repeated a simulation")
+    if failures.messages:
+        raise AssertionError(f"16b: {failures.messages}")
+    return launches
+
+
+def check_bessel_on_card(card):
+    """16d: bessel_iv and bessel_kv and their gradients in x on
+    BESSEL_ORDERS x BESSEL_X, on the card against the CPU (float64 against
+    float64, float32 against float32); where the CPU's value is infinite
+    or 0 (or NaN, a gradient at an infinite value) the card's must be the
+    same."""
+    from pymc_tpu_torch.ops.special import bessel_iv, bessel_kv
+
+    v_np, x_np = np.meshgrid(BESSEL_ORDERS, BESSEL_X, indexing="ij")
+
+    def value_and_grad(fn, device, dtype):
+        v = torch.as_tensor(v_np, device=device, dtype=dtype)
+        x = torch.as_tensor(x_np, device=device, dtype=dtype).requires_grad_(True)
+        out = fn(v, x)
+        (g,) = torch.autograd.grad(torch.where(torch.isfinite(out), out, 0.0).sum(), x)
+        return out.detach().double().cpu(), g.double().cpu()
+
+    for fn in (bessel_iv, bessel_kv):
+        for dtype, (rtol_v, rtol_g) in BESSEL_RTOL.items():
+            errs = []
+            for card_out, cpu_out, rtol in zip(value_and_grad(fn, "cuda", dtype),
+                                               value_and_grad(fn, "cpu", dtype),
+                                               (rtol_v, rtol_g)):
+                exact = ~torch.isfinite(cpu_out) | (cpu_out == 0)
+                if not np.array_equal(card_out[exact].numpy(), cpu_out[exact].numpy(),
+                                      equal_nan=True):
+                    raise AssertionError(f"{fn.__name__} {dtype}: the card's infinities, NaNs "
+                                         "or zeros differ from the CPU's")
+                rel = ((card_out - cpu_out).abs() / cpu_out.abs())[~exact]
+                errs.append(float(rel.max()))
+                if not errs[-1] <= rtol:
+                    raise AssertionError(f"{fn.__name__} {dtype}: max rel err {errs[-1]:.3e} "
+                                         f"> {rtol:g}")
+            print(f"{fn.__name__} {str(dtype).removeprefix('torch.')} on {v_np.size} points: "
+                  f"value max rel err {errs[0]:.3e} (tol {rtol_v:g}), d/dx {errs[1]:.3e} "
+                  f"(tol {rtol_g:g})  [{card}]")
+
+
+# 16d: moments.mean of these families, float32 on the card against float64
+# on the CPU, to this relative error (of max(|CPU's|, 1))
+MEANS_RTOL = 1e-5
+
+
+def mean_cases(pm):
+    """{family: distribution} whose means 16d holds on the card."""
+    return {
+        "Normal": pm.Normal.dist(np.array([0.5, -1.0]), 2.0),
+        "Gamma": pm.Gamma.dist(3.0, 2.0, shape=(3,)),
+        "Weibull": pm.Weibull.dist(2.0, 3.0),
+        "Rice": pm.Rice.dist(nu=np.array([0.5, 1.0, 30.0]), sigma=2.0),
+        "HyperGeometric": pm.HyperGeometric.dist(N=7, k=3, n=2),
+        "Dirichlet": pm.Dirichlet.dist(np.array([1.0, 2.0, 3.0])),
+        "Mixture": pm.Mixture.dist(np.array([0.25, 0.75]),
+                                   [pm.Normal.dist(-1.0, 1.0), pm.Gamma.dist(2.0, 0.5)]),
+        "ZeroInflatedPoisson": pm.ZeroInflatedPoisson.dist(psi=0.6, mu=5.0, shape=(3,)),
+        "StickBreakingWeights": pm.StickBreakingWeights.dist(alpha=2.0, K=4),
+        "LKJCorr": pm.LKJCorr.dist(n=3, eta=2.0),
+    }
+
+
+def check_means_on_card(card):
+    """16d: moments.mean on the card (float32 on cuda) against the CPU in
+    float64."""
+    import pymc_tpu_torch as pm
+    from pymc_tpu_torch.distributions import moments
+
+    worst = 0.0
+    for family, dist in mean_cases(pm).items():
+        got, ref = moments.mean(dist, device="cuda"), moments.mean(dist, device="cpu")
+        if got.device.type != "cuda" or got.dtype != torch.float32 or got.shape != ref.shape:
+            raise AssertionError(f"16d: the mean of {family} came back as {got.dtype} "
+                                 f"{tuple(got.shape)} on {got.device}")
+        err = float(((got.double().cpu() - ref).abs() / ref.abs().clamp(min=1.0)).max())
+        worst = max(worst, err)
+        if not err <= MEANS_RTOL:
+            raise AssertionError(f"16d: the mean of {family} on the card is {err:.3e} off")
+    print(f"moments.mean of {len(mean_cases(pm))} families on the card: max rel err "
+          f"{worst:.3e} (tol {MEANS_RTOL:g})  [{card}]")
+
+
+def check_slice_classes(card, failures):
+    """Phase 16d: each model of models.SLICE_MODELS, 16a's and 16c's:
+    logp/grad on the card against the CPU in float64 and the logp+grad
+    captured in a CUDA graph bitwise equal to the eager call (host ms a call
+    over 5 calls); the Bessel functions on the grid."""
+    from pymc_tpu_torch import models
+
+    phase("16d every class of the slice on the card: logp/grad, CUDA graph, Bessel")
+    t0 = time.perf_counter()
+    cases = [(name, models.slice_model(name)) for name in models.SLICE_MODELS]
+    cases += [("radon CustomDist (16a)", models.radon_custom_model()),
+              ("derived (16c)", models.derived_model())]
+    for label, model in cases:
+        check_logp_on_card(label, model)
+        check_graphed(label, model, 64, card, must_capture=True, calls=5)
+    if failures.messages:
+        raise AssertionError(f"16d: {failures.messages}")
+    print(f"16d models {time.perf_counter() - t0:.1f} s")
+    check_bessel_on_card(card)
+    check_means_on_card(card)
+    print(f"16d wall {time.perf_counter() - t0:.1f} s")
+
+
+def run_custom(card):
+    """Phase 16: CustomDist, Simulator, the derived densities, the Bessel
+    functions and nested models on the card; returns {path: {kernel:
+    launches}}. No CUDA graph capture may fail while it runs."""
+    from pymc_tpu_torch import models
+
+    failures = CaptureFailures()
+    t0 = time.perf_counter()
+    try:
+        radon = run_custom_radon(card, failures)
+        abc = run_abc(card, failures)
+        phase("16c derived: Discretized(Normal, 'round') and Max of 5 Normals")
+        derived, _ = run_distribution_model(card, "derived (16c)", models.derived_model,
+                                            models.DERIVED_SMOKE_KWARGS, models.DERIVED_SCALARS,
+                                            DERIVED_REFERENCE)
+        if failures.messages:
+            raise AssertionError(f"16c: {failures.messages}")
+        check_slice_classes(card, failures)
+    finally:
+        failures.close()
+    print(f"phase 16 wall {time.perf_counter() - t0:.1f} s")
+    return {"radon CustomDist": radon, "ABC": abc, "derived": derived}
+
+
 def pair_records(launches, errs, times, shape):
     """The pair's records of the `kernels` line, timed at `shape`."""
     records = []
@@ -3278,6 +3547,7 @@ def main():
     mv_paths, lkj_chol_times = run_multivariate(card)
     paths.update(mv_paths)
     paths.update(run_timeseries(card))
+    paths.update(run_custom(card))
     total = {k: sum(p[k] for p in paths.values()) for k in launches}
     kernels = kernel_records(total, errs, times, leaf, chol_err, chol_times)
     print("launches: " + "; ".join(f"{name} {p}" for name, p in paths.items()))

@@ -28,7 +28,12 @@ and resume, MultiTrace) and the results layer: pointwise log densities,
 `summary`/`hdi`, `loo`/`waic`/`compare`, the functional API (`logp`,
 `logcdf`, `logccdf`, `draw`) and functions of a posterior
 (`compute_deterministics`, `vectorize_over_posterior`,
-`compile_forward_sampling_function`). The package
+`compile_forward_sampling_function`). CustomDist, Simulator (with the ABC
+branch of `sample_smc`), the derived densities (Discretized, the order
+statistics, CumSum, Compared), analytic means, `Mixture.logcdf`, the
+Bessel functions of `pm.math`, and the rest of `Model`: nested models,
+coords, the compiled functions, `Point`, initial points and checks. The
+package
 imports torch and never jax; kernels are built at first use, never at
 import. Entry points run on the card unless `device="cpu"` is asked for.
 
@@ -41,7 +46,9 @@ import. Entry points run on the card unless `device="cpu"` is asked for.
     idata = pm.sample(draws=300, tune=300, chains=64, mass_adapt="pooled")
 """
 
-from . import backends, distributions, gp, math, stats, step_methods, tuning, variational
+from . import (
+    backends, distributions, gp, math, stats, step_methods, tuning, util, variational, vartypes,
+)
 from .backends import FileTrace, InferenceData, MultiTrace
 from .backends.arviz import predictions_to_inference_data, to_inference_data
 from .backends.report import SamplerReport
@@ -49,7 +56,9 @@ from .distributions import *  # noqa: F401,F403
 from .distributions import __all__ as _dist_all
 from .func_utils import find_constrained_prior
 from .functions import draw, icdf, logccdf, logcdf, logp
-from .model import Deterministic, Model, Potential
+from .model import (
+    Deterministic, Model, Point, Potential, compile, compile_fn, modelcontext, set_data,
+)
 from .sampling.forward import (
     compile_forward_sampling_function, compute_deterministics, sample_posterior_predictive,
     sample_prior_predictive, vectorize_over_posterior,
@@ -73,8 +82,11 @@ from .variational import (
 from .variational.approximations import Empirical, FullRank, MeanField
 
 __all__ = [
-    *[n for n in _dist_all if n not in ("Distribution", "Continuous", "Discrete", "transforms")],
-    "Model", "Deterministic", "Potential", "distributions", "math", "gp", "sample", "sample_smc",
+    *[n for n in _dist_all
+      if n not in ("Distribution", "Continuous", "Discrete", "transforms", "moments",
+                   "shape_utils")],
+    "Model", "Deterministic", "Potential", "modelcontext", "set_data", "compile", "compile_fn",
+    "Point", "util", "vartypes", "distributions", "math", "gp", "sample", "sample_smc",
     "sample_prior_predictive", "sample_posterior_predictive", "rhat", "ess", "init_nuts",
     "tuning", "variational", "find_MAP", "find_hessian", "find_constrained_prior", "fit", "ADVI",
     "ASVGD", "SVGD", "FullRankADVI", "KLqp", "ImplicitGradient", "KL", "KSD", "Operator",

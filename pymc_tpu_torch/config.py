@@ -12,7 +12,23 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["floatX", "intX", "resolve_device"]
+__all__ = ["floatX", "intX", "resolve_device", "config"]
+
+
+class _Config:
+    """Global switches (pymc_tpu/config.py). check_bounds: the
+    distributions' parameter checks (-inf, or NaN for a quantile, where a
+    parameter is invalid); `Model(check_bounds=False)` turns them off while
+    its densities are evaluated."""
+
+    def __init__(self):
+        self.check_bounds = True
+
+    def __repr__(self):
+        return f"Config(check_bounds={self.check_bounds})"
+
+
+config = _Config()
 
 
 def floatX(device=None) -> torch.dtype:

@@ -18,6 +18,8 @@ import math
 
 import torch
 
+from ..config import config
+
 __all__ = [
     "check_parameters", "check_icdf_parameters", "check_icdf_value", "icdf_bisection",
     "gammainc", "gammaincc", "betainc", "log_normal", "logpow", "safe_log",
@@ -30,7 +32,10 @@ _LOG_SQRT_2PI = 0.9189385332046727  # log(sqrt(2*pi))
 
 def check_parameters(logp, *conditions):
     """Return -inf where any parameter condition fails (the reference raises
-    ParameterValueError, dist_math.py:50; -inf is sampler-safe)."""
+    ParameterValueError, dist_math.py:50; -inf is sampler-safe); no check
+    where `config.check_bounds` is off."""
+    if not config.check_bounds or not conditions:
+        return logp
     ok = conditions[0]
     for c in conditions[1:]:
         ok = ok & c
@@ -41,7 +46,7 @@ def check_icdf_parameters(icdf, *conditions):
     """NaN where any parameter condition fails: PyMC's icdf semantics
     (reference dist_math.py check_icdf_parameters, whose assertion the
     logprob rewrites replace by NaN)."""
-    if not conditions:
+    if not config.check_bounds or not conditions:
         return icdf
     ok = conditions[0]
     for c in conditions[1:]:
@@ -125,9 +130,12 @@ def log1mexp(x):
     form of Maechler (2012) that the JAX package uses (`pymc_tpu/math.py::
     _log1mexp_jax`)."""
     x = torch.clamp(x, max=0.0)
-    return torch.where(
-        x > -0.6931471805599453, torch.log(-torch.expm1(x)), torch.log1p(-torch.exp(x))
-    )
+    near = x > -0.6931471805599453
+    # each branch sees a value it is finite at, so that the branch not taken
+    # adds no 0 * inf to the gradient (log1p(-exp(x)) at x = 0 has an
+    # infinite derivative, log(-expm1(x)) at x = -inf too)
+    return torch.where(near, torch.log(-torch.expm1(torch.where(near, x, -1.0))),
+                       torch.log1p(-torch.exp(torch.where(near, -1.0, x))))
 
 
 def factln(n):

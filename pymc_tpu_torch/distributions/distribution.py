@@ -96,9 +96,10 @@ class Distribution:
         initval = kwargs.pop("initval", None)
         named = {k: kwargs.pop(k) for k in cls._named_only_kwargs if k in kwargs}
         model = Model.get_context()
-        if observed is not None and kwargs.get("shape") is None:
+        sized = kwargs.get("shape") is not None or kwargs.get("size") is not None
+        if observed is not None and not sized:
             kwargs["shape"] = np.shape(observed)
-        elif dims is not None and kwargs.get("shape") is None:
+        elif dims is not None and not sized:
             kwargs["shape"] = model.shape_from_dims(dims)
         dist = cls.dist(*args, **kwargs)
         rv = model.register_rv(
@@ -116,14 +117,24 @@ class Distribution:
         """Called after a named random variable is registered."""
 
     @classmethod
-    def dist(cls, *args, shape=None, **kwargs):
-        """Unnamed-distribution path (reference distribution.py:597)."""
+    def dist(cls, *args, shape=None, size=None, **kwargs):
+        """Unnamed-distribution path (reference distribution.py:597):
+        `shape` is the whole shape, `size` the batch shape alone."""
+        if shape is not None and size is not None:
+            raise ValueError("Cannot pass both shape and size")
         obj = object.__new__(cls)
         if isinstance(shape, (int, np.integer)):
             shape = (int(shape),)
+        if isinstance(size, (int, np.integer)):
+            size = (int(size),)
         # the requested shape, which a time series reads its steps from
         obj._shape_arg = None if shape is None else tuple(shape)
+        obj._size_arg = None if size is None else tuple(size)
         obj.__dist_init__(*args, **kwargs)
+        if obj._size_arg is not None:
+            # the event shape comes from the parameters
+            obj._resolve_shapes(None)
+            obj._shape_arg = obj._size_arg + tuple(obj.event_shape)
         obj._resolve_shapes(obj._shape_arg)
         return obj
 
@@ -181,7 +192,8 @@ class Distribution:
         )
 
     def _cast_value(self, value, params):
-        value = torch.as_tensor(value)
+        # through numpy, so that a Python float is float64, not torch's float32
+        value = value if isinstance(value, torch.Tensor) else torch.as_tensor(np.asarray(value))
         if not self.is_discrete and not value.is_floating_point():
             floats = [p for p in params if p is not None and p.is_floating_point()]
             value = value.to(floats[0].dtype if floats else torch.float64)
@@ -232,7 +244,7 @@ class Distribution:
         memo = {} if memo is None else memo
         params = self.resolve_params(env, memo)
         floats = [p for p in params if p is not None and p.is_floating_point()]
-        q = torch.as_tensor(q)
+        q = q if isinstance(q, torch.Tensor) else torch.as_tensor(np.asarray(q))
         q = q.to(floats[0]) if floats else q.to(torch.float64)
         return check_icdf_value(self._icdf(q, *params), q)
 

@@ -10,7 +10,7 @@ draws. The components are `.dist` objects, given as a list (one per
 component) or as one distribution whose rightmost batch axis indexes the
 components. `inputs` lists the components' parameters besides the
 weights, so the graph finds the random variables the components read and
-the constants to place on the device. `Mixture.logcdf` is not ported.
+the constants to place on the device.
 """
 
 from __future__ import annotations
@@ -194,6 +194,23 @@ class Mixture(Distribution):
             torch.all(w >= 0, dim=-1),
             torch.abs(torch.sum(w, dim=-1) - 1.0) < 1e-6,
         )
+
+    def logcdf(self, value, env=None, memo=None):
+        """logsumexp over the components of log w + their log-cdfs, for a
+        list of components or one batched over its last axis
+        (pymc_tpu/distributions/mixture.py:253-269); a multivariate mixture
+        has none."""
+        if self.event_ndim:
+            raise NotImplementedError("logcdf of a multivariate mixture is not defined")
+        memo = {} if memo is None else memo
+        w = evaluate(self.w, env, memo)
+        value = self._cast_value(value, [w])
+        if self.comp_list is not None:
+            comp = torch.stack(torch.broadcast_tensors(
+                *[d.logcdf(value, env, memo) for d in self.comp_list]), dim=-1)
+        else:
+            comp = self.comp_single.logcdf(value[..., None], env, memo)
+        return torch.logsumexp(torch.log(torch.clamp(w, min=1e-30)) + comp, dim=-1)
 
     def sample(self, generator, sample_shape=(), env=None, memo=None):
         """A categorical pick among the components' draws (reference

@@ -1,7 +1,7 @@
 """Warnings and errors of the port (counterpart of the part of
 `pymc_tpu/exceptions.py` that the ported modules raise)."""
 
-__all__ = ["ImplicitFreezeWarning", "ImputationWarning"]
+__all__ = ["ImplicitFreezeWarning", "ImputationWarning", "UndefinedMomentException"]
 
 
 class ImplicitFreezeWarning(UserWarning):
@@ -12,3 +12,8 @@ class ImplicitFreezeWarning(UserWarning):
 class ImputationWarning(UserWarning):
     """Observed data with missing values is imputed (reference
     exceptions.py)."""
+
+
+class UndefinedMomentException(Exception):
+    """No support point / moment exists for a distribution
+    (reference exceptions.py)."""

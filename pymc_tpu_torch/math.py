@@ -11,7 +11,7 @@ conventions (`axis=None` reduces over every axis; `std`/`var` divide by n).
 A function called with no keyword argument keeps the PyTorch function
 itself as its node's function, so the distributions can recognise it (a
 Bernoulli whose `p` is `sigmoid(z)` reads the logit z). `iv` and `kv`
-wait for `ops/special.py` and raise.
+are the Bessel functions of `ops/special.py`.
 """
 
 from __future__ import annotations
@@ -26,6 +26,7 @@ import torch
 from .config import floatX as _floatX
 from .distributions import dist_math as _dm
 from .graph import Node, apply, as_node, as_tensor as _as_tensor
+from .ops import special as _special
 from .ops.linalg import cholesky_batched as _cholesky_batched
 
 __all__ = [
@@ -645,17 +646,15 @@ def polygamma(n, x):
 
 
 def iv(v, x):
-    """Modified Bessel function of the first kind: not ported yet."""
-    raise NotImplementedError(
-        "pm.math.iv waits for ops/special.py (ROADMAP.md §1, item 7), not ported yet"
-    )
+    """Modified Bessel function of the first kind, real order
+    (ops/special.py)."""
+    return _call(_special.bessel_iv, (v, x))
 
 
 def kv(v, x):
-    """Modified Bessel function of the second kind: not ported yet."""
-    raise NotImplementedError(
-        "pm.math.kv waits for ops/special.py (ROADMAP.md §1, item 7), not ported yet"
-    )
+    """Modified Bessel function of the second kind, real order
+    (ops/special.py)."""
+    return _call(_special.bessel_kv, (v, x))
 
 
 def _gamma(v):

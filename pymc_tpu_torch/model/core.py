@@ -17,8 +17,8 @@ import warnings
 import numpy as np
 import torch
 
-from ..blocking import RaveledInfo, unravel_vector
-from ..config import floatX, intX, resolve_device
+from ..blocking import RaveledInfo, ravel_point, unravel_vector
+from ..config import config, floatX, intX, resolve_device
 from ..distributions.distribution import (
     UNSET,
     _PartialObservedJoint,
@@ -26,20 +26,26 @@ from ..distributions.distribution import (
     _scatter_positions,
     scatter_missing,
 )
+from ..distributions.simulator import SIMULATOR_KEY
 from ..distributions.transforms import ChainedTransform
 from ..exceptions import ImputationWarning
+from ..initial_point import support_point_values
 from ..ops.cuda_graph import GraphedFunction
 from ..graph import (
     ConstantNode,
     DeterministicNode,
     FreeRV,
+    Node,
     ObservedRV,
     ancestors,
     as_node,
     place_constants,
 )
 
-__all__ = ["Model", "modelcontext", "Deterministic", "Potential"]
+__all__ = [
+    "Model", "modelcontext", "Deterministic", "Potential", "Point", "compile_fn", "compile",
+    "set_data", "BaseModel", "FrozenModel",
+]
 
 
 class _ContextStack(threading.local):
@@ -57,37 +63,79 @@ def modelcontext(model=None):
     return Model.get_context()
 
 
-class Model:
+class _InitContextMeta(type):
+    """Push the instance onto the model-context stack while its __init__
+    runs, so that a class-based model (``class MyModel(pm.Model)``)
+    registers variables in its constructor (pymc_tpu/model/core.py:69)."""
+
+    def __call__(cls, *args, **kwargs):
+        instance = cls.__new__(cls)
+        _MODEL_CONTEXT.stack.append(instance)
+        try:
+            instance.__init__(*args, **kwargs)
+        finally:
+            _MODEL_CONTEXT.stack.pop()
+        return instance
+
+
+# the registries a nested model shares with its root
+_ROOT_REGISTRIES = ("named_vars", "free_RVs", "observed_RVs", "deterministics", "potentials",
+                    "rvs_to_initial_values", "_coords", "_dim_lengths")
+
+
+class Model(metaclass=_InitContextMeta):
     """Bayesian model: named random variables and deterministics with
     coords/dims bookkeeping.
 
         with pm.Model(coords={"g": groups}) as model:
             mu = pm.Normal("mu", 0, 1)
             y = pm.Normal("y", mu, 1.0, observed=data)
+
+    A model built inside another (or given `model=`) is a sub-model: it
+    shares its root's registries, and the names of its variables carry its
+    name and its parents' joined by "::" (pymc_tpu/model/core.py:112-210).
+    An unnamed sub-model takes its parent's prefix. `check_bounds=False`
+    drops the distributions' parameter checks from the model's densities.
     """
 
     @classmethod
-    def get_context(cls):
+    def get_context(cls, error_if_none=True):
         if not _MODEL_CONTEXT.stack:
+            if not error_if_none:
+                return None
             raise TypeError(
                 "No model on context stack. Define variables inside a "
                 "`with pm.Model():` block, or pass model=... explicitly."
             )
         return _MODEL_CONTEXT.stack[-1]
 
-    def __init__(self, coords=None):
-        self.named_vars = {}
-        self.free_RVs = []
-        self.observed_RVs = []
-        self.deterministics = []
-        self.potentials = []
-        # {rv name: initval}, in the constrained space (reference
-        # Model.rvs_to_initial_values)
-        self.rvs_to_initial_values = {}
-        self._coords = {}
-        self._dim_lengths = {}
-        for name, values in (coords or {}).items():
-            self.add_coord(name, values)
+    def __init__(self, name="", coords=None, check_bounds=True, model=None):
+        self.name = str(name)
+        if self.name.startswith("::") or self.name.endswith("::"):
+            raise KeyError(f"name {self.name!r} cannot start or end with the '::' separator")
+        # while __init__ runs this model is on the stack (_InitContextMeta):
+        # the parent is the nearest enclosing model that is not this one
+        self.parent = model if model is not None else next(
+            (m for m in reversed(_MODEL_CONTEXT.stack) if m is not self), None)
+        self.check_bounds = check_bounds
+        if self.parent is None:
+            self._root = self
+            self.named_vars = {}
+            self.free_RVs = []
+            self.observed_RVs = []
+            self.deterministics = []
+            self.potentials = []
+            # {rv name: initval}, in the constrained space (reference
+            # Model.rvs_to_initial_values)
+            self.rvs_to_initial_values = {}
+            self._coords = {}
+            self._dim_lengths = {}
+        else:
+            self._root = self.parent.root
+            for attr in _ROOT_REGISTRIES:
+                setattr(self, attr, getattr(self._root, attr))
+        if coords is not None:
+            self.add_coords(coords)
 
     def __enter__(self):
         _MODEL_CONTEXT.stack.append(self)
@@ -97,17 +145,85 @@ class Model:
         _MODEL_CONTEXT.stack.pop()
         return False
 
+    @property
+    def root(self):
+        return self._root
+
+    @property
+    def isroot(self):
+        return self.parent is None
+
+    def __getattr__(self, attr):
+        # a model's variables are reachable as attributes by their local name
+        # (the class-based-model contract: `self.v2` after pm.Normal("v2"))
+        if not attr.startswith("_") and "named_vars" in self.__dict__:
+            named = self.__dict__["named_vars"]
+            for key in (self.name_for(attr), attr):
+                if key in named:
+                    return named[key]
+        raise AttributeError(f"'{type(self).__name__}' object has no attribute '{attr}'")
+
+    def name_for(self, name):
+        """`name` prefixed with this model's name and its named parents',
+        joined by "::"; an unnamed sub-model takes its parent's prefix
+        (pymc_tpu/model/core.py:196-210)."""
+        if self.name:
+            prefix, m = self.name, self.parent
+            while m is not None and m.name:
+                prefix = f"{m.name}::{prefix}"
+                m = m.parent
+            return f"{prefix}::{name}"
+        if self.parent is not None:
+            return self.parent.name_for(name)
+        return name
+
     # ------------------------------------------------------------- coords
     @property
     def coords(self):
         return dict(self._coords)
 
-    def add_coord(self, name, values):
-        values = tuple(np.asarray(values).tolist())
-        if name in self._dim_lengths and self._dim_lengths[name] != len(values):
+    @property
+    def dim_lengths(self):
+        return dict(self._dim_lengths)
+
+    def add_coord(self, name, values=None, length=None):
+        if values is None and length is None:
+            raise ValueError(f"Either values or length must be given for coord {name}")
+        if name in self.named_vars:
+            raise ValueError(
+                f"The coordinate name '{name}' conflicts with an existing model variable name."
+            )
+        if values is not None:
+            values = tuple(np.asarray(values).tolist())
+            length = len(values)
+        if name in self._dim_lengths and self._dim_lengths[name] != length:
             raise ValueError(f"Duplicate coord {name} with conflicting length")
         self._coords[name] = values
-        self._dim_lengths[name] = len(values)
+        self._dim_lengths[name] = int(length)
+
+    def add_coords(self, coords):
+        for name, values in coords.items():
+            self.add_coord(name, values=values)
+
+    def set_dim(self, name, new_length, coord_values=None):
+        """Resize a dimension (reference core.py:894). A model's shapes are
+        fixed when its variables are built, so this changes the
+        bookkeeping, as the JAX package's does; resizing a dimension that
+        holds data waits for data.py (`set_data`)."""
+        if (coord_values is None and self._coords.get(name) is not None
+                and int(new_length) != self._dim_lengths.get(name)):
+            raise ValueError(
+                f"The dim '{name}' has coord values; pass `coord_values` with the new "
+                "length to update them (reference core.py:894)."
+            )
+        if coord_values is not None and len(coord_values) != new_length:
+            raise ValueError(
+                f"Length of new coordinate values for dimension '{name}' does not match "
+                f"the new length: {len(coord_values)} != {new_length}"
+            )
+        self._dim_lengths[name] = int(new_length)
+        if coord_values is not None:
+            self._coords[name] = tuple(np.asarray(coord_values).tolist())
 
     def shape_from_dims(self, dims):
         dims = (dims,) if isinstance(dims, str) else tuple(dims)
@@ -132,9 +248,32 @@ class Model:
         (pymc_tpu/model/core.py:297)."""
         return [rv for rv in self.free_RVs if rv.dist.is_discrete]
 
+    def __contains__(self, key):
+        return key in self.named_vars
+
+    @property
+    def basic_RVs(self):
+        return self.free_RVs + self.observed_RVs
+
+    @property
+    def unobserved_RVs(self):
+        return self.free_RVs + self.deterministics
+
+    @property
+    def continuous_value_vars(self):
+        return [rv for rv in self.free_RVs if not rv.dist.is_discrete]
+
     def add_named_variable(self, var, dims=None):
+        if var.name is None:
+            raise ValueError("Variable is unnamed")
+        if var.name.startswith("::") or var.name.endswith("::"):
+            raise KeyError(f"name {var.name!r} cannot start or end with the '::' separator")
         if var.name in self.named_vars:
             raise ValueError(f"Variable name {var.name} already exists.")
+        if var.name in self._dim_lengths:
+            raise ValueError(
+                f"The variable name '{var.name}' conflicts with an existing dimension name."
+            )
         if dims is not None:
             dims = (dims,) if isinstance(dims, str) else tuple(dims)
             if len(dims) != len(var.shape):
@@ -159,8 +298,9 @@ class Model:
         warns. A discrete RV takes no transform, and a transform must treat
         at least the distribution's event dims as one block. `initval` (in
         the constrained space) replaces the support point as the initial
-        value.
+        value. `name` is prefixed with the model's name (`name_for`).
         """
+        name = self.name_for(name)
         if observed is not None:
             # a discrete distribution keeps integer data (float data without
             # NaN is cast to int64); continuous data is float64 at build time;
@@ -290,36 +430,67 @@ class Model:
         device = resolve_device(device)
         return place_constants(self._roots(), device, dtype or floatX(device))
 
-    def logp_terms_fn(self, device=None, dtype=None, jacobian=True):
+    def logp_terms_fn(self, device=None, dtype=None, jacobian=True, elementwise=False):
         """fn(value_dict) -> {name: summed logp term}, free RVs (with their
         jacobians unless jacobian=False) first, then observed RVs, then
-        potentials — the reference's order."""
+        potentials — the reference's order. With elementwise=True each term
+        keeps its batch shape (reference Model.logp(sum=False)): a transform
+        whose block is wider than the distribution's event collapses those
+        axes of the density, and its correction joins it elementwise
+        (pymc_tpu/model/core.py:710-796). A Simulator's generator, at
+        `SIMULATOR_KEY` in value_dict, is handed to its logp through the
+        environment. With the model's check_bounds off, the distributions'
+        parameter checks are off while fn runs."""
         placed = self.placed_constants(device, dtype)
         free_RVs = list(self.free_RVs)
         observed_RVs = list(self.observed_RVs)
         potentials = list(self.potentials)
+        check_bounds = bool(self.root.check_bounds)
 
-        def fn(value_dict):
+        def terms_of(value_dict):
             memo = dict(placed)
             env = {}
+            if SIMULATOR_KEY in value_dict:
+                env[SIMULATOR_KEY] = value_dict[SIMULATOR_KEY]
             for rv in free_RVs:
                 v = value_dict[rv.value_name]
                 env[rv.name] = rv.transform.backward(v, env, memo) if rv.transform else v
             terms = {}
             for rv in free_RVs:
-                lp = rv.dist.logp(env[rv.name], env, memo).sum()
-                if jacobian and rv.transform is not None:
-                    lp = lp + rv.transform.log_jac_det(value_dict[rv.value_name], env,
-                                                       memo).sum()
+                lp = rv.dist.logp(env[rv.name], env, memo)
+                if not elementwise:
+                    lp = lp.sum()
+                    if jacobian and rv.transform is not None:
+                        lp = lp + rv.transform.log_jac_det(value_dict[rv.value_name], env,
+                                                           memo).sum()
+                    terms[rv.name] = lp
+                    continue
+                if rv.transform is not None:
+                    for _ in range(max(rv.transform.event_ndim - rv.dist.event_ndim, 0)):
+                        if lp.ndim:
+                            lp = lp.sum(-1)
+                    if jacobian:
+                        jac = rv.transform.log_jac_det(value_dict[rv.value_name], env, memo)
+                        lp = lp + (jac if jac.shape == lp.shape else jac.reshape(lp.shape))
                 terms[rv.name] = lp
             for orv in observed_RVs:
                 lp = orv.dist.logp(orv._eval(env, memo), env, memo)
                 if orv.mask is not None:
                     lp = torch.where(orv.mask._eval(env, memo), 0.0, lp)
-                terms[orv.name] = lp.sum()
+                terms[orv.name] = lp if elementwise else lp.sum()
             for pot in potentials:
-                terms[pot.name] = pot._eval(env, memo).sum()
+                pv = pot._eval(env, memo)
+                terms[pot.name] = pv if elementwise else pv.sum()
             return terms
+
+        def fn(value_dict):
+            if check_bounds:
+                return terms_of(value_dict)
+            prev, config.check_bounds = config.check_bounds, False
+            try:
+                return terms_of(value_dict)
+            finally:
+                config.check_bounds = prev
 
         return fn
 
@@ -456,8 +627,246 @@ class Model:
 
         return torch.func.vmap(post)
 
+    # --------------------------------------------------- compiled functions
+    def _point(self, point, device, dtype):
+        """A point dict's values as tensors on `device`, floats in `dtype`
+        (default: `floatX(device)`), integers as int64."""
+        device = resolve_device(device)
+        dtype = dtype or floatX(device)
+        return {k: _as_device_tensor(v, device, dtype) for k, v in point.items()}
+
+    def compile_logp(self, vars=None, jacobian=True, sum=True, device=None, dtype=None):
+        """fn(point) -> the joint logp at a point dict of unconstrained
+        values (reference Model.compile_logp); `vars` (nodes or names)
+        keeps their terms only; sum=False gives {name: elementwise logp}."""
+        terms_fn = self.logp_terms_fn(device, dtype, jacobian=jacobian, elementwise=not sum)
+        names = None
+        if vars is not None:
+            vars = [vars] if isinstance(vars, (Node, str)) else list(vars)
+            names = [v.name if isinstance(v, Node) else str(v) for v in vars]
+
+        def fn(point):
+            terms = terms_fn(self._point(point, device, dtype))
+            sel = terms if names is None else {n: terms[n] for n in names}
+            if not sum:
+                return sel
+            vals = list(sel.values())
+            out = vals[0]
+            for v in vals[1:]:
+                out = out + v
+            return out
+
+        return fn
+
+    def compile_dlogp(self, jacobian=True, device=None, dtype=None):
+        """fn(point) -> {value name: d logp / d value} at a point dict of
+        unconstrained values, over its float entries."""
+        logp = self.logp_fn(device, dtype, jacobian=jacobian)
+
+        def fn(point):
+            point = self._point(point, device, dtype)
+            floats = {k: v for k, v in point.items() if v.is_floating_point()}
+            rest = {k: v for k, v in point.items() if k not in floats}
+            return torch.func.grad(lambda f: logp({**rest, **f}))(floats)
+
+        return fn
+
+    def compile_d2logp(self, jacobian=True, negate_output=False, device=None, dtype=None):
+        """fn(point) -> the (D, D) Hessian of the joint logp over the
+        raveled continuous values (reference Model.compile_d2logp returns
+        its negative: pass negate_output=True for that)."""
+        info = self.raveled_info(self.continuous_value_vars)
+        logp = self.logp_fn(device, dtype, jacobian=jacobian)
+
+        def fn(point):
+            point = self._point(point, device, dtype)
+            q = ravel_point(point, info)
+            h = torch.func.hessian(lambda x: logp({**point, **unravel_vector(x, info)}))(q)
+            return -h if negate_output else h
+
+        return fn
+
+    def compile_fn(self, outs, point_fn=True, device=None, dtype=None):
+        """fn(point) -> the value of `outs` (a node or a list of nodes) at a
+        point dict of constrained values keyed by variable name (reference
+        model/core.py:compile_fn)."""
+        return _compile_point_fn(self._roots(), outs, device, dtype)
+
+    # ------------------------------------------------------- initial points
+    def initial_point(self, random_seed=None, jitter=0.0, device=None, dtype=None):
+        """{value name: unconstrained initial value} on `device`: each free
+        RV's initval or support point, plus U(-jitter, jitter) noise on the
+        continuous ones from a generator seeded `random_seed` (0 if None)."""
+        device = resolve_device(device)
+        dtype = dtype or floatX(device)
+        values = support_point_values(self)
+        gen = torch.Generator().manual_seed(0 if random_seed is None else int(random_seed))
+        out = {}
+        for name, v in values.items():
+            if jitter and v.is_floating_point():
+                v = v + jitter * (2.0 * torch.rand(v.shape, generator=gen,
+                                                   dtype=torch.float64) - 1.0)
+            out[name] = _as_device_tensor(v, device, dtype)
+        return out
+
+    def check_start_vals(self, start, device=None, dtype=None):
+        """Raise SamplingError where a term of the logp is not finite at a
+        starting point (one point dict or a list of them; reference
+        core.py:1319)."""
+        from ..sampling.mcmc import SamplingError
+
+        terms_fn = self.logp_terms_fn(device, dtype)
+        for point in start if isinstance(start, list) else [start]:
+            terms = {k: float(v) for k, v in terms_fn(self._point(point, device, dtype)).items()}
+            bad = {k: v for k, v in terms.items() if not np.isfinite(v)}
+            if bad:
+                raise SamplingError(
+                    f"Initial evaluation of model at starting point failed!\n"
+                    f"Starting values:\n{point}\n\nLogp per variable: {bad}"
+                )
+
+    def point_logps(self, point=None, round_vals=2, device=None, dtype=None):
+        """{variable name without this model's prefix: its summed logp} at
+        `point` (default: the initial point; reference core.py:1370)."""
+        if point is None:
+            point = self.initial_point(device=device, dtype=dtype)
+        terms = self.logp_terms_fn(device, dtype)(self._point(point, device, dtype))
+        prefix = self.name_for("")
+        return {k.removeprefix(prefix): round(float(v), round_vals) for k, v in terms.items()}
+
+    def eval_rv_shapes(self):
+        return {rv.name: rv.shape for rv in self.basic_RVs}
+
+    def debug(self, point=None, fn="logp", verbose=False, device=None, dtype=None):
+        """Print the variables whose logp term is not finite at `point`
+        (default: the initial point) and return them (reference
+        core.py:1401)."""
+        if point is None:
+            point = self.initial_point(device=device, dtype=dtype)
+        terms = self.logp_terms_fn(device, dtype)(self._point(point, device, dtype))
+        terms = {k: float(v) for k, v in terms.items()}
+        problems = {k: v for k, v in terms.items() if not np.isfinite(v)}
+        if problems:
+            print(f"The variable(s) {list(problems)} have non-finite {fn}.")
+            if verbose:
+                print(terms)
+        else:
+            print("No problems found")
+        return problems
+
+    def profile(self, outs=None, n=1000, point=None, trace_dir=None, device=None):
+        """Seconds a call of `compile_logp()` and of `compile_dlogp()` at
+        `point` (default: the initial point), each over `n` calls after one:
+        between two CUDA events on the card, by the host clock on the CPU.
+        With `trace_dir` the timed calls run under torch.profiler, which
+        writes a chrome trace `trace.json` there (reference core.py:1246)."""
+        import contextlib
+        import os
+
+        device = resolve_device(device)
+        if point is None:
+            point = self.initial_point(device=device)
+        point = self._point(point, device, None)
+        prof = contextlib.nullcontext()
+        if trace_dir is not None:
+            from torch.profiler import ProfilerActivity
+            from torch.profiler import profile as torch_profile
+
+            activities = [ProfilerActivity.CPU]
+            if device.type == "cuda":
+                activities.append(ProfilerActivity.CUDA)
+            prof = torch_profile(activities=activities)
+        with prof:
+            t_logp = _seconds_a_call(self.compile_logp(device=device), point, n, device)
+            t_dlogp = _seconds_a_call(self.compile_dlogp(device=device), point, n, device)
+        if trace_dir is not None:
+            os.makedirs(trace_dir, exist_ok=True)
+            prof.export_chrome_trace(os.path.join(str(trace_dir), "trace.json"))
+        print(f"logp: {t_logp * 1e6:.1f} us/call; dlogp: {t_dlogp * 1e6:.1f} us/call "
+              f"({n} calls)")
+        return {"logp_sec_per_call": t_logp, "dlogp_sec_per_call": t_dlogp, "n_calls": n}
+
+    def set_initval(self, rv, value):
+        """Set (or clear, with None) the initial value of a free RV, in the
+        constrained space (reference model/core.py set_initval)."""
+        name = getattr(rv, "name", str(rv))
+        if name not in {r.name for r in self.free_RVs}:
+            raise KeyError(f"{name!r} is not a free random variable")
+        if value is None:
+            self.rvs_to_initial_values.pop(name, None)
+        else:
+            self.rvs_to_initial_values[name] = value
+
+    def set_data(self, name, values, coords=None):
+        """Waits for data.py (`pm.Data`), ROADMAP.md §1 item 7."""
+        raise NotImplementedError(
+            "Model.set_data waits for data.py (pm.Data), ROADMAP.md §1 item 7: not ported to "
+            "pymc_tpu_torch yet"
+        )
+
+    def to_graphviz(self, **kwargs):
+        """Waits for model_graph.py, ROADMAP.md §1 item 8."""
+        raise NotImplementedError(
+            "Model.to_graphviz waits for model_graph.py, ROADMAP.md §1 item 8: not ported to "
+            "pymc_tpu_torch yet"
+        )
+
     def __repr__(self):
-        return f"<Model: {len(self.free_RVs)} free RVs, {len(self.observed_RVs)} observed>"
+        return (f"<Model '{self.name}': {len(self.free_RVs)} free RVs, "
+                f"{len(self.observed_RVs)} observed>")
+
+
+def _as_device_tensor(v, device, dtype):
+    t = v if isinstance(v, torch.Tensor) else torch.as_tensor(np.asarray(v))
+    if t.is_floating_point():
+        return t.to(device=device, dtype=dtype)
+    return t.to(device=device, dtype=intX() if t.dtype != torch.bool else torch.bool)
+
+
+def _seconds_a_call(fn, point, n, device):
+    import time
+
+    fn(point)
+    if device.type == "cuda":
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(n):
+            fn(point)
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end) / 1e3 / n
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn(point)
+    return (time.perf_counter() - t0) / n
+
+
+def _compile_point_fn(roots, outs, device, dtype, in_names=None):
+    """fn(point) (or fn(*args) with `in_names`) -> the value of `outs`, a
+    node or a list of nodes, with the environment taken from the point (or
+    the arguments) on `device`, and every constant the nodes read placed
+    there."""
+    outs_list = list(outs) if isinstance(outs, (list, tuple)) else [outs]
+    device = resolve_device(device)
+    dtype = dtype or floatX(device)
+    placed = place_constants(list(roots) + [o for o in outs_list if isinstance(o, Node)],
+                             device, dtype)
+
+    def run(env):
+        env = {k: _as_device_tensor(v, device, dtype) for k, v in env.items()}
+        memo = dict(placed)
+        vals = [o._eval(env, memo) if isinstance(o, Node) else o for o in outs_list]
+        return vals if isinstance(outs, (list, tuple)) else vals[0]
+
+    if in_names is None:
+        return run
+
+    def fn(*args):
+        if len(args) != len(in_names):
+            raise TypeError(f"expected {len(in_names)} arguments, got {len(args)}")
+        return run(dict(zip(in_names, args)))
+
+    return fn
 
 
 def _resolve_transform(dist, name, transform, default_transform):
@@ -518,7 +927,7 @@ def Deterministic(name, var, model=None, dims=None):
     node = var if isinstance(var, DeterministicNode) else as_node(var)
     if not isinstance(node, DeterministicNode):
         node = DeterministicNode(lambda x: x.clone(), (node,))
-    node.name = name
+    node.name = model.name_for(name)
     model.deterministics.append(node)
     return model.add_named_variable(node, dims)
 
@@ -530,6 +939,44 @@ def Potential(name, var, model=None, dims=None):
     node = var if isinstance(var, DeterministicNode) else as_node(var)
     if not isinstance(node, DeterministicNode):
         node = DeterministicNode(lambda x: x.clone(), (node,))
-    node.name = name
+    node.name = model.name_for(name)
     model.potentials.append(node)
     return model.add_named_variable(node, dims)
+
+
+def set_data(new_data, model=None, coords=None):
+    """Waits for data.py (`pm.Data`), ROADMAP.md §1 item 7."""
+    for name, values in new_data.items():
+        modelcontext(model).set_data(name, values, coords=coords)
+
+
+def Point(*args, filter_model_vars=False, model=None, **kwargs):
+    """A point dict of numpy arrays (reference core.py:Point); with
+    filter_model_vars, only the keys that name a model variable or a free
+    RV's value."""
+    d = dict(*args, **kwargs)
+    if filter_model_vars:
+        model = modelcontext(model)
+        names = set(model.named_vars) | {rv.value_name for rv in model.free_RVs}
+        d = {k: v for k, v in d.items() if k in names}
+    return {k: np.asarray(v.cpu() if isinstance(v, torch.Tensor) else v) for k, v in d.items()}
+
+
+# the reference's class names (its BaseModel/FrozenModel split is an
+# implementation detail of PyTensor)
+BaseModel = Model
+FrozenModel = Model
+
+
+def compile_fn(outs, model=None, point_fn=True, device=None, dtype=None):
+    """`Model.compile_fn` of the context model."""
+    return modelcontext(model).compile_fn(outs, point_fn=point_fn, device=device, dtype=dtype)
+
+
+def compile(inputs, outputs, random_seed=None, mode=None, device=None, dtype=None, **kwargs):
+    """fn(*args) -> the value of `outputs` (a node or a list of nodes) with
+    each of `inputs` (nodes or names) bound to its argument, on `device`
+    (reference pytensorf.py:924 `compile`; `random_seed`, `mode` and the
+    other keyword arguments are taken and unused, as in the JAX package)."""
+    in_names = [i.name if isinstance(i, Node) else str(i) for i in inputs]
+    return _compile_point_fn([], outputs, device, dtype, in_names=in_names)

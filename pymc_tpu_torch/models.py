@@ -29,7 +29,12 @@ on 500 subjects, right-censored at t = 4 through `Censored`) and
 `stochastic_volatility_model` `examples/stochastic_volatility.py` (a
 200-step GaussianRandomWalk log-volatility under StudentT returns), each
 on the example's own data and seed; `timeseries_model` builds one small
-model for each time-series class. Each model
+model for each time-series class. `radon_custom_model` is
+`bench.build_model`'s radon GLM with its likelihood written by hand as a
+`CustomDist`, built inside a named model (`radon::`); `abc_simulator_model`
+is `examples/abc_simulator.py` (a Simulator under `sample_smc`), and
+`derived_model` a model whose likelihoods are a rounded Normal
+(`Discretized`) and the maximum of five Normals (`Max`). Each model
 function takes the
 package to build with (`pymc_tpu_torch` by default), so the reference
 package builds the same model from the same data. The radon GLM's builder
@@ -63,6 +68,9 @@ __all__ = [
     "SURVIVAL_SCALARS", "SURVIVAL_TRUTH",
     "stochastic_volatility_data", "stochastic_volatility_model", "SV_SAMPLE_KWARGS",
     "SV_SMOKE_KWARGS", "SV_SCALARS", "TIMESERIES_MODELS", "timeseries_model", "TS_COV",
+    "radon_custom_model", "RADON_SCALARS", "abc_data", "abc_simulate", "abc_simulator_model",
+    "ABC_SMC_KWARGS", "ABC_SEEDS", "derived_data", "derived_model", "DERIVED_SAMPLE_KWARGS",
+    "DERIVED_SMOKE_KWARGS", "DERIVED_SCALARS", "SLICE_MODELS", "slice_model",
 ]
 
 # bench.py's many-chain configuration (pooled mass and step, target_accept
@@ -847,4 +855,220 @@ def timeseries_model(name, pm=None, sde_fn=None):
         mu = pm.Normal("mu", 0.0, 1.0)
         s = pm.HalfNormal("s", 1.0)
         TIMESERIES_MODELS[name](pm, mu, s, sde_fn)
+    return model
+
+
+# the radon GLM's scalars, as tests/data/torch_radon_reference.json holds them
+RADON_SCALARS = ("mu_a", "mu_b", "sigma_a", "sigma_b", "sigma_y")
+
+
+def _normal_logp_by_hand(pm):
+    """logp(value, mu, sigma) of a Normal, written out with `pm.math` so
+    that either package evaluates it on its own arrays."""
+    half_log_2pi = 0.5 * np.log(2.0 * np.pi)
+
+    def logp(value, mu, sigma):
+        return -0.5 * ((value - mu) / sigma) ** 2 - pm.math.log(sigma) - half_log_2pi
+
+    return logp
+
+
+def radon_custom_model(pm=None, name="radon"):
+    """`bench.build_model`'s radon GLM (the same data, priors and 175 free
+    values) inside `pm.Model(name=name)`, so every name carries "radon::",
+    with its likelihood a CustomDist whose logp is the Normal log-density
+    written by hand."""
+    if pm is None:
+        import pymc_tpu_torch as pm
+    county, floor_x, log_radon = radon_data()
+    with pm.Model(name=name, coords={"county": np.arange(85)}) as model:
+        mu_a = pm.Normal("mu_a", 0.0, 10.0)
+        sigma_a = pm.HalfCauchy("sigma_a", 5.0)
+        mu_b = pm.Normal("mu_b", 0.0, 10.0)
+        sigma_b = pm.HalfCauchy("sigma_b", 5.0)
+        a_t = pm.Normal("a_t", 0.0, 1.0, dims="county")
+        b_t = pm.Normal("b_t", 0.0, 1.0, dims="county")
+        a = pm.Deterministic("a", mu_a + sigma_a * a_t, dims="county")
+        b = pm.Deterministic("b", mu_b + sigma_b * b_t, dims="county")
+        sigma_y = pm.HalfCauchy("sigma_y", 5.0)
+        mu_y = a[county] + b[county] * floor_x
+        pm.CustomDist("y", mu_y, sigma_y, logp=_normal_logp_by_hand(pm), observed=log_radon)
+    return model
+
+
+# examples/abc_simulator.py: sample_smc's draws and chains, and the seeds of
+# the fixture's runs
+ABC_SMC_KWARGS = dict(draws=1000, chains=2)
+ABC_SEEDS = (0, 1, 2, 3, 4)
+
+
+def abc_data(n=200, seed=1):
+    """The example's 200 observations of Normal(1.5, 1)
+    (`examples/abc_simulator.py:6`)."""
+    return np.random.default_rng(seed).normal(1.5, 1.0, n)
+
+
+def abc_simulate(rng, mu):
+    """The example's simulation, `mu + N(0, 1)` of 200 values, drawn from
+    the torch.Generator `rng` on mu's device (the example's `simulate(key,
+    mu)`)."""
+    import torch
+
+    return mu + torch.randn(200, generator=rng, dtype=mu.dtype, device=mu.device)
+
+
+def abc_simulator_model(pm=None, simulate=abc_simulate):
+    """mu ~ Normal(0, 3); Simulator(simulate, mu, sum_stat="sort",
+    epsilon=0.5) observed on `abc_data()` (`examples/abc_simulator.py:
+    11-14`); `simulate` is the package's own (the JAX package's takes a
+    key)."""
+    if pm is None:
+        import pymc_tpu_torch as pm
+    with pm.Model() as model:
+        mu = pm.Normal("mu", 0, 3)
+        pm.Simulator("s", simulate, mu, sum_stat="sort", epsilon=0.5, observed=abc_data())
+    return model
+
+
+DERIVED_SCALARS = ("mu", "sigma")
+# the fixture's run (pymc_tpu on the CPU in float64) and chip_smoke.py
+# phase 16c's: 64 chains in lock-step with a pooled mass
+DERIVED_SAMPLE_KWARGS = dict(chains=16, tune=1000, draws=1000, random_seed=0,
+                             mass_adapt="pooled")
+DERIVED_SMOKE_KWARGS = dict(chains=64, tune=200, draws=200, random_seed=0, mass_adapt="pooled")
+
+
+def derived_data(seed=11):
+    """(60 measurements of Normal(2.3, 1.4) rounded to integers, the
+    maxima of 40 groups of 5 draws of it)."""
+    rng = np.random.default_rng(seed)
+    rounded = np.round(rng.normal(2.3, 1.4, 60))
+    maxima = rng.normal(2.3, 1.4, size=(40, 5)).max(axis=1)
+    return rounded, maxima
+
+
+def derived_model(pm=None):
+    """mu ~ Normal(0, 5), sigma ~ HalfNormal(3); the rounded measurements
+    ~ Discretized(Normal(mu, sigma), "round") and the group maxima ~
+    Max(Normal(mu, sigma), 5), on `derived_data()`. 2 free values."""
+    if pm is None:
+        import pymc_tpu_torch as pm
+    rounded, maxima = derived_data()
+    with pm.Model() as model:
+        mu = pm.Normal("mu", 0.0, 5.0)
+        sigma = pm.HalfNormal("sigma", 3.0)
+        pm.Discretized("y_round", pm.Normal.dist(mu, sigma), "round", observed=rounded)
+        pm.Max("y_max", pm.Normal.dist(mu, sigma), 5, observed=maxima)
+    return model
+
+
+def _slice_discretized(pm, method):
+    mu = pm.Normal("mu", 0.0, 1.0)
+    sigma = pm.HalfNormal("sigma", 1.0)
+    pm.Discretized("y", pm.Normal.dist(mu, sigma), method,
+                   observed=np.array([-2.0, -1.0, 0.0, 0.0, 1.0, 2.0, 3.0]))
+
+
+def _slice_order_statistic(pm, kind):
+    mu = pm.Normal("mu", 0.0, 1.0)
+    sigma = pm.HalfNormal("sigma", 1.0)
+    x = np.array([-0.8, 0.1, 0.4, 1.3, 2.1])
+    if kind == "Max":
+        pm.Max("y", pm.Normal.dist(mu, sigma), 4, observed=x)
+    elif kind == "Min":
+        pm.Min("y", pm.Normal.dist(mu, sigma), 4, observed=x)
+    elif kind == "rank":
+        pm.OrderStatistic("y", pm.Gumbel.dist(mu, sigma), 5, 2, observed=x)
+    else:  # the discrete maximum and minimum
+        lam = pm.Gamma("lam", 2.0, 1.0)
+        pm.Max("y_max", pm.Poisson.dist(lam), 3, observed=np.array([1, 2, 4, 3]))
+        pm.Min("y_min", pm.Poisson.dist(lam), 3, observed=np.array([0, 1, 1, 2]))
+
+
+def _slice_cumsum(pm):
+    mu = pm.Normal("mu", 0.0, 1.0)
+    walk = pm.CumSum("walk", pm.Normal.dist(mu, 1.0, shape=(6,)))
+    pm.Normal("y", walk, 0.5, observed=np.array([0.3, 0.1, 0.9, 1.4, 1.2, 2.0]))
+
+
+def _slice_compared(pm):
+    mu = pm.Normal("mu", 0.0, 1.0)
+    sigma = pm.HalfNormal("sigma", 1.0)
+    lam = pm.Gamma("lam", 2.0, 1.0)
+    pm.Compared("above", pm.Normal.dist(mu, sigma), 0.5, ">", observed=np.array([1, 0, 1, 1, 0]))
+    pm.Compared("below", pm.Normal.dist(mu, sigma), -0.2, "<=", observed=np.array([0, 1, 0]))
+    pm.Compared("at_least", pm.Poisson.dist(lam), 2, ">=", observed=np.array([1, 1, 0, 1]))
+    pm.Compared("less", pm.Poisson.dist(lam), 1, "<", observed=np.array([0, 1, 0]))
+
+
+def _slice_mixture_logcdf(pm):
+    """A censored mixture: its logp reads the mixture's logcdf, of a list
+    of components and of one batched component."""
+    w = pm.Dirichlet("w", np.ones(2))
+    mu = pm.Normal("mu", np.array([-1.0, 1.0]), 1.0, transform=pm.distributions.transforms.ordered)
+    x = np.array([-1.7, -0.4, 0.2, 1.1, 1.5, 2.0, 2.0])
+    pm.Censored("y_list", pm.Mixture.dist(w, [pm.Normal.dist(mu[0], 0.7),
+                                              pm.Normal.dist(mu[1], 0.7)]),
+                lower=None, upper=2.0, observed=x)
+    pm.Censored("y_batched", pm.Mixture.dist(w, pm.Normal.dist(mu, 0.7)),
+                lower=-1.5, upper=None, observed=np.maximum(x, -1.5))
+
+
+def _slice_custom_signature(pm):
+    """A multivariate CustomDist given by `signature=`: each row's
+    independent Normal log-density, summed over its last axis by hand."""
+    mu = pm.Normal("mu", 0.0, 1.0, shape=3)
+    sd = pm.HalfNormal("sd", 1.0)
+
+    def logp(value, mu, sd):
+        z = (value - mu) / sd
+        return pm.math.sum(-0.5 * z * z - pm.math.log(sd) - 0.5 * np.log(2.0 * np.pi), axis=-1)
+
+    pm.CustomDist("rows", mu, sd, logp=logp, signature="(n),()->(n)",
+                  observed=np.array([[0.2, -0.5, 1.0], [0.4, 0.1, 0.7]]))
+
+
+def _slice_custom_dist(pm):
+    """A CustomDist whose `dist=` returns a distribution, free and
+    observed."""
+    mu = pm.Normal("mu", 0.0, 1.0)
+    sigma = pm.HalfNormal("sigma", 1.0)
+    pm.CustomDist("z", mu, dist=lambda mu, size: pm.Normal.dist(mu, 1.0, size=size))
+    pm.CustomDist("y", mu, sigma,
+                  dist=lambda mu, sigma, size: pm.LogNormal.dist(mu, sigma, size=size),
+                  observed=np.array([0.5, 1.2, 2.4]))
+
+
+def _slice_bessel(pm):
+    """Bessel functions in a Potential: log K_1.5(x) + log I_2.5(x) and
+    I_-1.5(x) on a positive x."""
+    x = pm.Gamma("x", 3.0, 1.0)
+    pm.Potential("bessel", pm.math.log(pm.math.kv(1.5, x)) + pm.math.log(pm.math.iv(2.5, x))
+                 + 0.1 * pm.math.iv(-1.5, x))
+
+
+# one small model for each class and form of the CustomDist / derived /
+# Bessel slice, for chip_smoke.py phase 16d and the tests
+SLICE_MODELS = {
+    **{f"Discretized {m}": (lambda pm, m=m: _slice_discretized(pm, m))
+       for m in ("round", "floor", "ceil", "trunc")},
+    "Max": lambda pm: _slice_order_statistic(pm, "Max"),
+    "Min": lambda pm: _slice_order_statistic(pm, "Min"),
+    "OrderStatistic rank 2 of 5": lambda pm: _slice_order_statistic(pm, "rank"),
+    "Max and Min of Poisson": lambda pm: _slice_order_statistic(pm, "discrete"),
+    "CumSum": _slice_cumsum,
+    "Compared": _slice_compared,
+    "Mixture.logcdf": _slice_mixture_logcdf,
+    "CustomDist signature": _slice_custom_signature,
+    "CustomDist dist=": _slice_custom_dist,
+    "bessel": _slice_bessel,
+}
+
+
+def slice_model(name, pm=None):
+    """The model of SLICE_MODELS[name], built with `pm`."""
+    if pm is None:
+        import pymc_tpu_torch as pm
+    with pm.Model() as model:
+        SLICE_MODELS[name](pm)
     return model

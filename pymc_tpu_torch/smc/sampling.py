@@ -12,9 +12,10 @@ coordinates rounded to the lattice before every density. The results are
 an InferenceData with the log marginal likelihood, beta, acceptance and
 sweeps in sample_stats and the stage histories in the attrs.
 
+A model with a `Simulator` (likelihood-free ABC) draws a fresh simulation
+for every particle at every density evaluation, from the run's generator.
 Left out against the JAX package: `mesh=` (the particle axis sharded over
-devices) raises NotImplementedError, and the ABC `Simulator` branch waits
-for `Simulator`, which the port does not have.
+devices) raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -28,6 +29,7 @@ import torch
 from ..backends.arviz import to_inference_data
 from ..blocking import ravel_point, unravel_vector
 from ..config import floatX, resolve_device
+from ..distributions.simulator import SIMULATOR_KEY, Simulator
 from ..model.core import modelcontext
 from ..sampling.chees import HostReads
 from ..sampling.forward import _generative_fn
@@ -35,7 +37,7 @@ from ..sampling.mcmc import _postprocess
 from ..stats.convergence import log_warnings, run_convergence_checks
 from .kernels import IMH, MH, TorchSMCDraws, smc_init, smc_stage
 
-__all__ = ["sample_smc", "tempered_density", "prior_particles"]
+__all__ = ["sample_smc", "tempered_density", "prior_particles", "has_simulator"]
 
 _log = logging.getLogger("pymc_tpu_torch")
 
@@ -53,16 +55,33 @@ def _snap_fn(model, info, device):
     return lambda q: torch.where(mask, torch.round(q), q)
 
 
-def tempered_density(model, device=None, dtype=None):
+def has_simulator(model):
+    """Whether an observed variable of `model` is a Simulator (ABC)."""
+    return any(isinstance(orv.dist, Simulator) for orv in model.observed_RVs)
+
+
+def tempered_density(model, device=None, dtype=None, generator=None):
     """fn(particles (P, D)) -> (prior logp (P,), likelihood logp (P,)) over
     flat unconstrained points on `device` in `dtype`: the free RVs' terms
     with their jacobians, and the observed RVs' terms, a non-finite one
-    taken as -inf."""
+    taken as -inf. A model with a Simulator (ABC) simulates from
+    `generator` (a torch.Generator on `device`; default seeded 0): every
+    particle of every call gets a simulation of its own
+    (`vmap(randomness="different")`; pymc_tpu/smc/sampling.py:119-140
+    splits its key per particle)."""
     device = resolve_device(device)
     info = model.raveled_info()
     snap = _snap_fn(model, info, device)
     split_logp = model.logp_fn(device, dtype, split=True)
-    batched = torch.func.vmap(lambda q: split_logp(unravel_vector(snap(q), info)))
+    sim = has_simulator(model)
+    if sim and generator is None:
+        generator = torch.Generator(device=device).manual_seed(0)
+    # a model without a Simulator keeps vmap's guard against drawing
+    extra = {SIMULATOR_KEY: generator} if sim else {}
+    batched = torch.func.vmap(
+        lambda q: split_logp({**unravel_vector(snap(q), info), **extra}),
+        randomness="different" if sim else "error",
+    )
 
     def fn(particles):
         prior, like = batched(particles)
@@ -177,7 +196,7 @@ def sample_smc(
     generator.manual_seed(int(random_seed))
     kernel = _resolve_kernel(kernel, correlation_threshold, kernel_kwargs)
 
-    prior_like_fn = tempered_density(model, device, dtype)
+    prior_like_fn = tempered_density(model, device, dtype, generator)
     info = model.raveled_info()
     particles = prior_particles(model, chains * draws, generator, device, dtype)
     particles = particles.reshape(chains, draws, info.total_size)

@@ -23,6 +23,7 @@ tests/test_torch_icdf.py), and the default transform of every class,
 which must be the JAX package's.
 """
 
+import functools
 import math
 
 import numpy as np
@@ -239,46 +240,89 @@ def compare(got, ref, rtol):
     np.testing.assert_allclose(got, ref, rtol=rtol, atol=1e-15)
 
 
-def both(pmj_cls, pmt_cls, method, values, params):
-    """(port's, JAX package's) `method` of `.dist(**params)` at values."""
-    ref = getattr(pmj_cls.dist(**params), method)(jnp.asarray(values))
-    got = getattr(pmt_cls.dist(**params), method)(torch.as_tensor(values))
-    return got.detach().numpy(), np.asarray(ref)
+ICDF_NAMES = ("Normal", "Beta", "StudentT")
+ICDF_Q = np.array([0.05, 0.5, 0.9])
+TRANSFORM_V = np.linspace(-2.0, 2.0, 5)
+
+
+def _grad_args(name):
+    """(the parameters held fixed, the names of those differentiated, the
+    point: the value first, then those parameters)."""
+    spec = SPECS[name]
+    params = spec["params"][0]
+    keys = [k for k in params if k in spec.get("grad_params", params)]
+    fixed = {k: v for k, v in params.items() if k not in keys}
+    return fixed, keys, [spec["grad"]] + [params[k] for k in keys]
+
+
+@functools.lru_cache(maxsize=None)
+def _references():
+    """Every pymc_tpu value of this module's tests, traced and compiled as
+    one jitted function (a compile, or an eager dispatch of every op, a
+    case took most of the module's time): each parameter set's logp and
+    logcdf at the values, the support points, the gradients of logp, the
+    quantiles and the default transforms' backward maps."""
+
+    def run():
+        out = {}
+        for name, spec in SPECS.items():
+            v = jnp.asarray(_values(name))
+            for i, params in enumerate(spec["params"]):
+                d = getattr(pmj, name).dist(**params)
+                out[f"logp {name} {i}"] = d.logp(v)
+                if name in LOGCDF:
+                    out[f"logcdf {name} {i}"] = d.logcdf(v)
+                if i < 2:
+                    out[f"support_point {name} {i}"] = jnp.asarray(d.support_point())
+            fixed, keys, x0 = _grad_args(name)
+
+            def f_jax(*xs, name=name, fixed=fixed, keys=keys):
+                d = getattr(pmj, name).dist(**fixed, **dict(zip(keys, xs[1:])))
+                return jnp.sum(d.logp(xs[0]))
+
+            out[f"grad {name}"] = jax.grad(f_jax, argnums=tuple(range(len(x0))))(
+                *[jnp.asarray(float(x)) for x in x0])
+            tj = getattr(pmj, name).dist(**spec["params"][0]).default_transform()
+            if tj is not None:
+                out[f"transform {name}"] = tj.backward(jnp.asarray(TRANSFORM_V))
+        for name in ICDF_NAMES:
+            d = getattr(pmj, name).dist(**SPECS[name]["params"][0])
+            out[f"icdf {name}"] = d.icdf(jnp.asarray(ICDF_Q))
+        return out
+
+    return jax.tree.map(np.asarray, jax.jit(run)())
+
+
+def both(name, method, i):
+    """(port's, JAX package's) `method` of `.dist(**params)`, the i-th
+    parameter set, at the values."""
+    d = getattr(pmt, name).dist(**SPECS[name]["params"][i])
+    got = getattr(d, method)(torch.as_tensor(_values(name)))
+    return got.detach().numpy(), _references()[f"{method} {name} {i}"]
 
 
 @pytest.mark.parametrize("name", sorted(SPECS))
 def test_logp_matches(name):
     rtol = RTOL_SPECIAL if "logp" in SPECS[name].get("special", ()) else RTOL
-    for params in SPECS[name]["params"]:
-        got, ref = both(getattr(pmj, name), getattr(pmt, name), "logp", _values(name), params)
+    for i in range(len(SPECS[name]["params"])):
+        got, ref = both(name, "logp", i)
         compare(got, ref, rtol)
-    bad = SPECS[name]["params"][-1]
     if len(SPECS[name]["params"]) > 1:
-        assert np.isneginf(both(getattr(pmj, name), getattr(pmt, name), "logp",
-                                _values(name), bad)[0]).all()
+        assert np.isneginf(both(name, "logp", len(SPECS[name]["params"]) - 1)[0]).all()
 
 
 @pytest.mark.parametrize("name", LOGCDF)
 def test_logcdf_matches(name):
     rtol = RTOL_SPECIAL if "logcdf" in SPECS[name].get("special", ()) else RTOL
-    for params in SPECS[name]["params"]:
-        got, ref = both(getattr(pmj, name), getattr(pmt, name), "logcdf", _values(name), params)
+    for i in range(len(SPECS[name]["params"])):
+        got, ref = both(name, "logcdf", i)
         compare(got, ref, rtol)
 
 
 @pytest.mark.parametrize("name", sorted(SPECS))
 def test_logp_gradient_matches(name):
-    spec = SPECS[name]
-    params = spec["params"][0]
-    keys = [k for k in params if k in spec.get("grad_params", params)]
-    fixed = {k: v for k, v in params.items() if k not in keys}
-    x0 = [spec["grad"]] + [params[k] for k in keys]
-
-    def f_jax(*xs):
-        d = getattr(pmj, name).dist(**fixed, **dict(zip(keys, xs[1:])))
-        return jnp.sum(d.logp(xs[0]))
-
-    ref = jax.grad(f_jax, argnums=tuple(range(len(x0))))(*[jnp.asarray(x) for x in x0])
+    fixed, keys, x0 = _grad_args(name)
+    ref = _references()[f"grad {name}"]
     xs = [torch.tensor(float(x), dtype=torch.float64, requires_grad=True) for x in x0]
     d = getattr(pmt, name).dist(**fixed, **dict(zip(keys, xs[1:])))
     out = d.logp(xs[0]).sum()
@@ -291,8 +335,8 @@ def test_logp_gradient_matches(name):
 
 @pytest.mark.parametrize("name", sorted(SPECS))
 def test_support_point_matches(name):
-    for params in SPECS[name]["params"][:2]:
-        ref = np.asarray(getattr(pmj, name).dist(**params).support_point())
+    for i, params in enumerate(SPECS[name]["params"][:2]):
+        ref = _references()[f"support_point {name} {i}"]
         got = getattr(pmt, name).dist(**params).support_point().numpy()
         np.testing.assert_allclose(got, ref, rtol=RTOL)
 
@@ -324,14 +368,14 @@ def test_lognormal_alias():
     assert pmt.Lognormal is pmt.LogNormal
 
 
-@pytest.mark.parametrize("name", ["Normal", "Beta", "StudentT"])
+@pytest.mark.parametrize("name", ICDF_NAMES)
 def test_icdf_is_not_ported_yet(name):
     # named when icdf raised; the quantiles are ported now and are held to
     # pymc_tpu's and to scipy's here (every class: tests/test_torch_icdf.py)
     params = SPECS[name]["params"][0]
-    q = np.array([0.05, 0.5, 0.9])
+    q = ICDF_Q
     got = getattr(pmt, name).dist(**params).icdf(torch.as_tensor(q)).numpy()
-    ref = np.asarray(getattr(pmj, name).dist(**params).icdf(jnp.asarray(q)))
+    ref = _references()[f"icdf {name}"]
     np.testing.assert_allclose(got, ref, rtol=1e-9, atol=1e-9)
     # StudentT's median comes out of the bisection 2e-8 off, in both packages
     np.testing.assert_allclose(got, SPECS[name]["moments"].ppf(q), rtol=1e-8, atol=1e-7)
@@ -344,9 +388,8 @@ def test_default_transform_matches(name):
     assert (tt is None) == (tj is None)
     if tj is not None:
         assert type(tt).__name__ == type(tj).__name__ and tt.name == tj.name
-        v = np.linspace(-2.0, 2.0, 5)
-        np.testing.assert_allclose(tt.backward(torch.as_tensor(v)).numpy(),
-                                   np.asarray(tj.backward(jnp.asarray(v))), rtol=RTOL)
+        np.testing.assert_allclose(tt.backward(torch.as_tensor(TRANSFORM_V)).numpy(),
+                                   _references()[f"transform {name}"], rtol=RTOL)
 
 
 def test_interpolated_free_variable_matches():
@@ -363,8 +406,7 @@ def test_interpolated_free_variable_matches():
     q = np.array([[-8.0], [-0.5], [0.0], [1.3], [6.0]])
     lp, grad = mt.logp_dlogp_fn(device="cpu")(torch.as_tensor(q))
     info = mj.raveled_info()
-    f = jax.value_and_grad(lambda z: mj.logp_fn()(unravel_vector(z, info)))
-    ref = [f(jnp.asarray(z)) for z in q]
-    np.testing.assert_allclose(lp.numpy(), [float(r[0]) for r in ref], rtol=1e-10)
-    np.testing.assert_allclose(grad.numpy(), np.stack([np.asarray(r[1]) for r in ref]),
-                               rtol=1e-10, atol=1e-12)
+    f = jax.jit(jax.vmap(jax.value_and_grad(lambda z: mj.logp_fn()(unravel_vector(z, info)))))
+    ref_lp, ref_grad = f(jnp.asarray(q))
+    np.testing.assert_allclose(lp.numpy(), np.asarray(ref_lp), rtol=1e-10)
+    np.testing.assert_allclose(grad.numpy(), np.asarray(ref_grad), rtol=1e-10, atol=1e-12)

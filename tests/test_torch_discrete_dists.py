@@ -19,6 +19,7 @@ Then the stable forms of a probability given as `pm.math.sigmoid(z)`
 Categorical's checks of a constant `p`; `compute_p` of the ordered classes.
 """
 
+import functools
 import math
 
 import numpy as np
@@ -128,50 +129,86 @@ def compare(got, ref, rtol):
     np.testing.assert_allclose(got, ref, rtol=rtol, atol=1e-15)
 
 
-def both(name, method, params):
-    values = np.asarray(SPECS[name]["values"], dtype=np.int64)
-    ref = getattr(getattr(pmj, name).dist(**params), method)(jnp.asarray(values))
-    got = getattr(getattr(pmt, name).dist(**params), method)(torch.as_tensor(values))
-    return got.detach().numpy(), np.asarray(ref)
+def _values(name):
+    return np.asarray(SPECS[name]["values"], dtype=np.int64)
+
+
+def _grad_args(name):
+    """(the parameter set, the parameters held fixed, those differentiated,
+    their values)."""
+    spec = SPECS[name]
+    params = spec["params"][spec.get("grad", 0)]
+    keys = list(spec["grad_params"])
+    fixed = {k: v for k, v in params.items() if k not in keys}
+    return fixed, keys, [np.asarray(params[k], dtype=np.float64) for k in keys]
+
+
+@functools.lru_cache(maxsize=None)
+def _references():
+    """Every pymc_tpu value of this module's tests, traced and compiled as
+    one jitted function (an eager dispatch of every op a case took most of
+    the module's time): each parameter set's logp and logcdf at the values,
+    the support points and the gradients of logp."""
+
+    def run():
+        out = {}
+        for name, spec in SPECS.items():
+            v = jnp.asarray(_values(name))
+            for i, params in enumerate(spec["params"]):
+                d = getattr(pmj, name).dist(**params)
+                out[f"logp {name} {i}"] = d.logp(v)
+                if name in LOGCDF and params.get("n") != 1e12:
+                    out[f"logcdf {name} {i}"] = d.logcdf(v)
+                out[f"support_point {name} {i}"] = jnp.asarray(d.support_point())
+            if spec["grad_params"]:
+                fixed, keys, x0 = _grad_args(name)
+
+                def f_jax(*xs, name=name, fixed=fixed, keys=keys, v=v):
+                    lp = getattr(pmj, name).dist(**fixed, **dict(zip(keys, xs))).logp(v)
+                    return jnp.sum(jnp.where(jnp.isfinite(lp), lp, 0.0))
+
+                out[f"grad {name}"] = jax.grad(f_jax, argnums=tuple(range(len(keys))))(
+                    *[jnp.asarray(x) for x in x0])
+        return out
+
+    return jax.tree.map(np.asarray, jax.jit(run)())
+
+
+def both(name, method, i):
+    """(port's, JAX package's) `method` of `.dist(**params)`, the i-th
+    parameter set, at the values."""
+    d = getattr(pmt, name).dist(**SPECS[name]["params"][i])
+    got = getattr(d, method)(torch.as_tensor(_values(name)))
+    return got.detach().numpy(), _references()[f"{method} {name} {i}"]
 
 
 @pytest.mark.parametrize("name", sorted(SPECS))
 def test_logp_matches(name):
     params = SPECS[name]["params"]
-    for p in params:
-        compare(*both(name, "logp", p), RTOL)
+    for i in range(len(params)):
+        compare(*both(name, "logp", i), RTOL)
     # the last set's parameters are invalid (the ordered classes check none)
     if name not in ("Categorical", "OrderedLogistic", "OrderedProbit"):
-        assert np.isneginf(both(name, "logp", params[-1])[0]).all()
+        assert np.isneginf(both(name, "logp", len(params) - 1)[0]).all()
 
 
 @pytest.mark.parametrize("name", LOGCDF)
 def test_logcdf_matches(name):
     rtol = RTOL_BETAINC if "logcdf" in SPECS[name].get("special", ()) else RTOL
-    for p in SPECS[name]["params"]:
+    for i, p in enumerate(SPECS[name]["params"]):
         # at n = 1e12 p = n / (mu + n) keeps ~4 digits of 1 - p: a case of
         # the logp's Poisson limit, where neither package's logcdf is exact
         if p.get("n") != 1e12:
-            compare(*both(name, "logcdf", p), rtol)
+            compare(*both(name, "logcdf", i), rtol)
 
 
 @pytest.mark.parametrize("name", sorted(n for n in SPECS if SPECS[n]["grad_params"]))
 def test_logp_gradient_matches(name):
-    spec = SPECS[name]
-    params = spec["params"][spec.get("grad", 0)]
-    keys = list(spec["grad_params"])
-    fixed = {k: v for k, v in params.items() if k not in keys}
-    values = np.asarray(spec["values"], dtype=np.int64)
-
-    def f_jax(*xs):
-        d = getattr(pmj, name).dist(**fixed, **dict(zip(keys, xs)))
-        lp = d.logp(jnp.asarray(values))
-        return jnp.sum(jnp.where(jnp.isfinite(lp), lp, 0.0))
-
-    x0 = [np.asarray(params[k], dtype=np.float64) for k in keys]
-    ref = jax.grad(f_jax, argnums=tuple(range(len(keys))))(*[jnp.asarray(x) for x in x0])
+    fixed, keys, x0 = _grad_args(name)
+    ref = _references()[f"grad {name}"]
     xs = [torch.tensor(x, requires_grad=True) for x in x0]
-    lp = getattr(pmt, name).dist(**fixed, **dict(zip(keys, xs))).logp(torch.as_tensor(values))
+    lp = getattr(pmt, name).dist(**fixed, **dict(zip(keys, xs))).logp(
+        torch.as_tensor(_values(name)))
     got = torch.autograd.grad(torch.where(torch.isfinite(lp), lp, 0.0).sum(), xs)
     for g, r in zip(got, ref):
         np.testing.assert_allclose(g.numpy(), np.asarray(r), rtol=1e-10, atol=1e-14)
@@ -179,9 +216,10 @@ def test_logp_gradient_matches(name):
 
 @pytest.mark.parametrize("name", sorted(SPECS))
 def test_support_point_matches(name):
-    for params in SPECS[name]["params"][:-1] or SPECS[name]["params"]:
-        ref = np.asarray(getattr(pmj, name).dist(**params).support_point())
-        got = getattr(pmt, name).dist(**params).support_point()
+    n = len(SPECS[name]["params"])
+    for i in range(n - 1 if n > 1 else 1):
+        ref = _references()[f"support_point {name} {i}"]
+        got = getattr(pmt, name).dist(**SPECS[name]["params"][i]).support_point()
         assert got.dtype == torch.int64
         np.testing.assert_array_equal(got.numpy(), ref)
 
@@ -222,7 +260,8 @@ def test_sigmoid_probability_takes_the_stable_forms(name):
     assert mt["y"].dist.logit_p is not None
     z = np.array([-800.0, -30.0, 0.0, 2.5, 30.0])[:, None]
     lp, grad = mt.logp_dlogp_fn(device="cpu")(torch.as_tensor(z))
-    ref = [float(mj.logp_fn()(unravel_vector(jnp.asarray(q), mj.raveled_info()))) for q in z]
+    info = mj.raveled_info()
+    ref = np.asarray(jax.jit(jax.vmap(lambda q: mj.logp_fn()(unravel_vector(q, info))))(z))
     assert np.isfinite(lp.numpy()).all() and np.isfinite(grad.numpy()).all()
     np.testing.assert_allclose(lp.numpy(), ref, rtol=RTOL)
 

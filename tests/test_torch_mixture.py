@@ -18,6 +18,7 @@ and mean are within 5 standard errors of the exact ones. Mixture's default
 transform compares interval components' bounds as the JAX package does.
 """
 
+import functools
 import warnings
 
 import numpy as np
@@ -199,6 +200,29 @@ def _values(name, shape, rng):
     return rng.normal(0.5, 2.0, size=(7,) + shape)
 
 
+@functools.lru_cache(maxsize=None)
+def _dist_references():
+    """Every pymc_tpu value of the zero-inflated and hurdle cases at each
+    psi, traced and compiled as one jitted function: an eager dispatch of
+    every op a case took most of their time. (The DISTS cases stay eager:
+    under jit XLA's fusion moves the Dirichlet's logp at the uniform
+    simplex from 0 to 8.9e-16, which rtol cannot hold.)"""
+
+    def run():
+        out = {}
+        for name, (params, _, _, values) in ZERO_CLASSES.items():
+            values = jnp.asarray(np.asarray(values, dtype=_zero_dtype(name)))
+            for psi in ZERO_PSI:
+                dj = getattr(pmj, name).dist(psi=psi, **params)
+                for method in _zero_methods(name):
+                    out[f"{method} {name} {psi}"] = getattr(dj, method)(values)
+                if psi <= 1.0:
+                    out[f"support_point {name} {psi}"] = jnp.asarray(dj.support_point())
+        return out
+
+    return jax.tree.map(np.asarray, jax.jit(run)())
+
+
 @pytest.mark.parametrize("name", sorted(DISTS))
 def test_logp_and_support_point_match(name):
     dj, dt = DISTS[name](pmj), DISTS[name](pmt)
@@ -287,7 +311,7 @@ def test_suite_logp_and_grad_match(suite_pair):
     info = mj.raveled_info()
     q = np.random.default_rng(0).normal(0.0, 1.0, size=(16, info.total_size))
     lf = mj.logp_fn()
-    lj, gj = jax.vmap(jax.value_and_grad(lambda x: lf(unravel_vector(x, info))))(q)
+    lj, gj = jax.jit(jax.vmap(jax.value_and_grad(lambda x: lf(unravel_vector(x, info)))))(q)
     lt, gt = mt.logp_dlogp_fn(device="cpu")(_t(q))
     np.testing.assert_allclose(lt.numpy(), np.asarray(lj), rtol=1e-10)
     np.testing.assert_allclose(gt.numpy(), np.asarray(gj), rtol=1e-10, atol=1e-10)
@@ -298,7 +322,7 @@ def test_suite_split_logp_and_unconstrain_match(suite_pair):
     info = mj.raveled_info()
     q = np.random.default_rng(1).normal(0.0, 1.0, size=info.total_size)
     vj = unravel_vector(jnp.asarray(q), info)
-    ref = mj.logp_fn(split=True)(vj)
+    ref = jax.jit(mj.logp_fn(split=True))(vj)
     got = mt.logp_fn(device="cpu", split=True)(unravel_t(_t(q), mt.raveled_info()))
     np.testing.assert_allclose([float(g) for g in got], [float(r) for r in ref], rtol=1e-12)
     point = {rv.name: rv.transform.backward(vj[rv.value_name]) for rv in mj.free_RVs}
@@ -415,24 +439,34 @@ ZERO_CLASSES = {
 }
 
 
+ZERO_PSI = (0.7, 0.0, 1.0, 1.3)
+
+
+def _zero_dtype(name):
+    return np.float64 if "Gamma" in name or "LogNormal" in name else np.int64
+
+
+def _zero_methods(name):
+    return ["logp"] + (["logcdf"] if name.startswith("Zero") else [])
+
+
 @pytest.mark.parametrize("name", sorted(ZERO_CLASSES))
 def test_zero_inflated_and_hurdle_match(name):
     params, _, _, values = ZERO_CLASSES[name]
-    dtype = np.float64 if "Gamma" in name or "LogNormal" in name else np.int64
-    values = np.asarray(values, dtype=dtype)
-    for psi in (0.7, 0.0, 1.0, 1.3):
+    values = np.asarray(values, dtype=_zero_dtype(name))
+    for psi in ZERO_PSI:
         dj, dt = getattr(pmj, name).dist(psi=psi, **params), getattr(pmt, name).dist(psi=psi,
                                                                                   **params)
-        methods = ["logp"] + (["logcdf"] if name.startswith("Zero") else [])
-        for method in methods:
-            ref = np.asarray(getattr(dj, method)(jnp.asarray(values)))
+        for method in _zero_methods(name):
+            ref = _dist_references()[f"{method} {name} {psi}"]
             got = getattr(dt, method)(torch.as_tensor(values)).numpy()
             np.testing.assert_array_equal(np.isneginf(got), np.isneginf(ref))
             rtol = 1e-10 if method == "logcdf" and "Poisson" not in name else 1e-12
             np.testing.assert_allclose(got, ref, rtol=rtol, atol=1e-15)
         if psi <= 1.0:
             np.testing.assert_allclose(dt.support_point().numpy(),
-                                       np.asarray(dj.support_point()), rtol=1e-12)
+                                       _dist_references()[f"support_point {name} {psi}"],
+                                       rtol=1e-12)
     assert dt.is_discrete == dj.is_discrete and dt.default_transform() is None
 
 
