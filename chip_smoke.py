@@ -262,6 +262,23 @@ Phases, in order; any failure ends the script with a non-zero exit:
                 CPU and in float32 against the CPU in float32 (the series
                 cut depends on the float type); moments.mean of ten
                 families on the card against the CPU in float64
+  17. chains  — the logprob engine's elementwise chains: 17a.
+                models.radon_lognormal_model (the radon GLM, its
+                likelihood a CustomDist(dist=exp(Normal)) observed on
+                exp(log_radon)): its float32 logp+grad at (64, 175) is the
+                Normal GLM's less sum(log y) (LOGNORMAL_RTOL), then sampled
+                at RADON_SAMPLE_KWARGS with phase 5's launch identities and
+                no Cholesky, R-hat < 1.05, the means within 5 combined MCSE
+                of tests/data/torch_radon_reference.json; 17b. every link
+                of the registry, the arithmetic links, the folds and the
+                switch scale (chain_cases): logp and its gradient, logcdf,
+                logccdf and icdf in float32 on the card against float64 on
+                the CPU, values outside the image included (-inf and 0
+                exact); the float32 lattice test of exp(Poisson); the
+                lognormal model's logp/grad against the CPU and its
+                logp+grad from a CUDA graph bitwise equal to eager; 17c.
+                pm.draw of exp(Normal(mu, s)) and of a CustomDist of it on
+                the card: the mean of log y within 4 standard errors of mu
 
 Phase 3 also checks and times the Cholesky at SMC's (4, 3) stack, at
 phase 9's shapes and at phase 10's (1, 175) and (1, 150), and its jvp under
@@ -3476,6 +3493,216 @@ def run_custom(card):
     return {"radon CustomDist": radon, "ABC": abc, "derived": derived}
 
 
+# phase 17: the logprob engine's elementwise chains
+# 17a: the lognormal radon GLM's float32 logp+grad on the card against the
+# Normal radon GLM's (bench.build_model) at the same points: the logp less
+# sum(log y) within this relative error, the gradient within this fraction of
+# its largest entry (log(exp(log_radon)) in float32 is log_radon within some
+# ulps)
+LOGNORMAL_RTOL = 1e-5
+# 17b: each chain's logp, logcdf, logccdf and icdf and the logp's gradient in
+# the value, float32 on the card against float64 on the CPU, within this of
+# max(1, |CPU|); -inf, 0 and NaN (outside the image, at its edges) exactly
+CHAIN_TOL = 1e-4
+# 17c: draws of exp(Normal(mu, s)) on the card, and how many standard errors
+# the mean of their logs may lie from mu
+DRAW_N, DRAW_Z = 200_000, 4.0
+
+
+def chain_cases(pm):
+    """(label, expression, values, cdf) of 17b: every link of the registry,
+    the arithmetic links, the folds and the switch scale over a base that
+    suits each; values inside the image first, then outside it; cdf False
+    where the cdf family raises (a direction undetermined, or a fold)."""
+    m = pm.math
+
+    def normal():
+        return pm.Normal.dist(0.3, 1.2)
+
+    def expo():
+        return pm.Exponential.dist(1.5)
+
+    def unit():
+        return pm.Kumaraswamy.dist(2.0, 3.0)
+
+    t = m.exp(normal())
+    x = normal()
+    return [
+        ("exp", m.exp(normal()), [0.5, 1.3, 4.0, -1.0, 0.0], True),
+        ("log", m.log(expo()), [-1.0, 0.2, 1.5], True),
+        ("log1p", m.log1p(expo()), [0.1, 0.5, 2.0], True),
+        ("expm1", m.expm1(normal()), [-0.5, 0.3, 3.0, -1.5], True),
+        ("log2", m.log2(expo()), [-1.0, 0.5, 2.0], True),
+        ("log10", m.log10(expo()), [-1.0, 0.5, 2.0], True),
+        ("exp2", pm.graph.apply(torch.exp2, normal()), [0.5, 2.0, 5.0, -1.0], True),
+        ("sqrt", m.sqrt(expo()), [0.5, 1.2, 2.0, -0.5], True),
+        ("cbrt", m.cbrt(normal()), [-1.2, 0.4, 1.5], True),
+        ("negative", -expo(), [-2.0, -0.5, -0.1], True),
+        ("reciprocal", pm.graph.apply(torch.reciprocal, expo()), [0.5, 2.0], False),
+        ("sigmoid", m.sigmoid(normal()), [0.2, 0.5, 0.9, -0.2, 1.3], True),
+        ("logit", m.logit(unit()), [-1.0, 0.0, 2.0], True),
+        ("invprobit", m.invprobit(normal()), [0.1, 0.5, 0.95, -0.5, 1.5], True),
+        ("probit", m.probit(unit()), [-1.0, 0.3, 1.0], True),
+        ("sinh", m.sinh(normal()), [-2.0, 0.3, 3.0], True),
+        ("arcsinh", m.arcsinh(normal()), [-1.0, 0.2, 2.0], True),
+        ("tanh", m.tanh(normal()), [-0.9, 0.1, 0.7, -1.0, 1.2], True),
+        ("arctanh", m.arctanh(unit()), [0.2, 0.6, 1.1], True),
+        ("erf", m.erf(normal()), [-0.5, 0.2, 0.8, -1.5, 1.5], True),
+        ("erfinv", m.erfinv(unit()), [0.1, 0.5, 1.2], True),
+        ("erfc", m.erfc(normal()), [0.3, 1.0, 1.7, -0.5, 2.5], True),
+        ("erfcinv", m.erfcinv(unit()), [0.2, 0.6, 1.2], True),
+        ("arcsin", m.arcsin(unit()), [0.2, 0.7, 1.3, 2.0], True),
+        ("arccos", m.arccos(unit()), [0.3, 0.9, 1.4, -0.5, 3.5], True),
+        ("arctan", m.arctan(normal()), [-1.0, 0.3, 1.2, -1.7, 1.7], True),
+        ("arccosh(1 + x)", m.arccosh(1.0 + expo()), [0.3, 1.0, 2.0, -0.5], True),
+        ("softplus", m.softplus(normal()), [0.2, 1.0, 3.0, -0.3], True),
+        ("log1mexp(-x)", m.log1mexp(-expo()), [-2.0, -0.5, -0.05, 0.5], True),
+        ("2.5 x - 1", 2.5 * normal() - 1.0, [-2.0, 0.5, 3.0], True),
+        ("3 - x / 4", 3.0 - normal() / 4.0, [2.5, 2.9, 3.3], True),
+        ("2 / x", 2.0 / expo(), [0.5, 2.0, 7.0], False),
+        ("2 ** x", 2.0 ** normal(), [0.5, 1.2, 3.0, -1.0], True),
+        ("0.5 ** x", 0.5 ** normal(), [0.5, 1.2, 3.0, 0.0], True),
+        ("x ** 3", normal() ** 3, [-2.0, 0.1, 1.5], True),
+        ("x ** 0.5", expo() ** 0.5, [0.3, 1.0, 1.7, -0.1], True),
+        ("x ** -1.5", expo() ** -1.5, [0.3, 1.0, 4.0], False),
+        ("t / (1 + t)", t / (1.0 + t), [0.2, 0.5, 0.9, 1.0], False),
+        ("2 sigmoid(x) + 1", 2.0 * m.sigmoid(normal()) + 1.0, [1.2, 2.0, 2.9, 0.5, 3.5], True),
+        ("abs", abs(normal()), [-0.5, 0.0, 0.3, 1.7], False),
+        ("x ** 2", normal() ** 2, [-0.5, 0.0, 0.3, 1.7], False),
+        ("cosh", m.cosh(normal()), [0.5, 1.0, 1.3, 4.0], False),
+        ("switch scale", m.where(x > 0, 2.0 * x, 0.5 * x), [-2.0, -0.3, 0.4, 3.0], True),
+    ]
+
+
+def chain_values(pm, expr, values, cdf, device, dtype):
+    """{name: tensor} of one chain on `device` in `dtype`: logp, and its
+    gradient in the value, at `values`; logcdf, logccdf and icdf where
+    `cdf`."""
+    v = torch.tensor(values, device=device, dtype=dtype, requires_grad=True)
+    lp = pm.logp(expr, v)
+    (g,) = torch.autograd.grad(torch.where(torch.isfinite(lp), lp, 0.0).sum(), v)
+    out = {"logp": lp.detach(), "dlogp": g}
+    if cdf:
+        v = v.detach()
+        q = torch.tensor(np.linspace(0.03, 0.97, 7), device=device, dtype=dtype)
+        out.update(logcdf=pm.logcdf(expr, v), logccdf=pm.logccdf(expr, v), icdf=pm.icdf(expr, q))
+    return {k: x.double().cpu() for k, x in out.items()}
+
+
+def check_chains_on_card(card):
+    """17b: every case of chain_cases in float32 on the card against the
+    CPU in float64 (CHAIN_TOL; -inf, 0 and NaN exactly); the float32 lattice
+    test of a discrete base."""
+    import pymc_tpu_torch as pm
+
+    worst, n = 0.0, 0
+    for label, expr, values, cdf in chain_cases(pm):
+        card_out = chain_values(pm, expr, values, cdf, "cuda", torch.float32)
+        cpu_out = chain_values(pm, expr, values, cdf, "cpu", torch.float64)
+        for key, ref in cpu_out.items():
+            got = card_out[key]
+            exact = ~torch.isfinite(ref) | (ref == 0)
+            if not np.array_equal(got[exact].numpy(), ref[exact].numpy(), equal_nan=True):
+                raise AssertionError(f"17b {label} {key}: the card's {got.tolist()} against the "
+                                     f"CPU's {ref.tolist()} where -inf, 0 or NaN")
+            err = float(((got - ref).abs() / ref.abs().clamp(min=1.0))[~exact].amax()) \
+                if bool((~exact).any()) else 0.0
+            worst, n = max(worst, err), n + got.numel()
+            if not err <= CHAIN_TOL:
+                raise AssertionError(f"17b {label} {key}: max err {err:.3e} > {CHAIN_TOL:g}")
+    k = torch.arange(0, 81, device="cuda", dtype=torch.float32)
+    lattice = pm.math.exp(pm.Poisson.dist(30.0))
+    on = pm.logp(lattice, torch.exp(k))
+    off = pm.logp(lattice, torch.exp(k + 0.01))
+    miss = float(((torch.log(torch.exp(k)) - k).abs() / k.clamp(min=1.0)).max())
+    print(f"{len(chain_cases(pm))} chains, {n} values: logp, its gradient, logcdf, logccdf and "
+          f"icdf float32 on the card against float64 on the CPU, max err {worst:.3e} (tol "
+          f"{CHAIN_TOL:g}), -inf/0/NaN exact; exp(Poisson) at exp(k), k = 0..80: "
+          f"{int(torch.isfinite(on).sum())} of 81 on the lattice (largest miss of log(exp(k)) "
+          f"{miss:.2e} of k), at exp(k + 0.01) {int(torch.isfinite(off).sum())}  [{card}]")
+    if not (bool(torch.isfinite(on).all()) and not bool(torch.isfinite(off).any())):
+        raise AssertionError("17b: the float32 lattice test of exp(Poisson) failed on the card")
+
+
+def run_lognormal_radon(card, failures):
+    """17a: models.radon_lognormal_model's logp+grad against the Normal
+    radon GLM's on the card, then sampled at RADON_SAMPLE_KWARGS and
+    checked as phase 16a checks its model. Returns {kernel: launches}."""
+    import pymc_tpu_torch as pm
+    from pymc_tpu_torch import models
+
+    phase("17a radon with a CustomDist(dist=exp(Normal)) likelihood")
+    t0 = time.perf_counter()
+    lognormal, normal = models.radon_lognormal_model(), bench_module().build_model(pm)
+    D = lognormal.raveled_info().total_size
+    q = torch.as_tensor(np.random.default_rng(0).normal(0.0, 0.5, size=(64, D)), device="cuda",
+                        dtype=torch.float32)
+    (lp, g), (lp_n, g_n) = (mdl.logp_dlogp_fn(device="cuda")(q) for mdl in (lognormal, normal))
+    shift = float(models.radon_data()[2].sum())
+    lp_err = float(((lp.double() + shift - lp_n.double()).abs() / lp_n.double().abs()).max())
+    g_err = float((g - g_n).abs().max() / g_n.abs().max())
+    print(f"lognormal radon logp+grad at (64, {D}): logp + sum(log y) against the Normal GLM's "
+          f"max rel err {lp_err:.3e}, grad {g_err:.3e} of its largest entry (tol "
+          f"{LOGNORMAL_RTOL:g})  [{card}]")
+    if not (lp_err <= LOGNORMAL_RTOL and g_err <= LOGNORMAL_RTOL):
+        raise AssertionError("17a: the lognormal radon GLM's logp+grad is not the Normal one's")
+    config = models.RADON_SAMPLE_KWARGS
+    idata, launches = sample_counted(lognormal, config)
+    post = idata.posterior
+    check_launch_identities("radon lognormal (17a)", post.attrs, launches)
+    if launches["cholesky"]:
+        raise AssertionError(f"17a: {launches['cholesky']} Cholesky launches")
+    sampling_summary("radon lognormal (17a)", idata, list(models.RADON_SCALARS), card)
+    check_means("radon lognormal (17a)", post, models.RADON_SCALARS, REFERENCE)
+    if failures.messages:
+        raise AssertionError(f"17a: {failures.messages}")
+    print(f"17a wall {time.perf_counter() - t0:.1f} s; leapfrogs a draw "
+          f"{leapfrogs_per_draw(idata, config):.1f}")
+    return launches, lognormal
+
+
+def check_lognormal_draws(card):
+    """17c: pm.draw of exp(Normal(mu, s)) and of a CustomDist(dist=) of it
+    on the card: positive, and the mean of their logs within DRAW_Z
+    standard errors of mu."""
+    import pymc_tpu_torch as pm
+
+    mu, s = 1.5, 0.7
+    expr = pm.math.exp(pm.Normal.dist(mu, s))
+    custom = pm.CustomDist.dist(mu, s, dist=lambda m, sd, size: pm.math.exp(
+        pm.Normal.dist(m, sd, size=size)))
+    for label, rv in (("exp(Normal)", expr), ("CustomDist(dist=exp(Normal))", custom)):
+        y = pm.draw(rv, draws=DRAW_N, random_seed=17, device="cuda")
+        z = (float(torch.log(y).double().mean()) - mu) / (s / math.sqrt(DRAW_N))
+        print(f"pm.draw({label}) on the card: {tuple(y.shape)} {y.dtype} on {y.device}; mean "
+              f"of log y {z:+.2f} standard errors from mu  [{card}]")
+        if y.device.type != "cuda" or y.shape != (DRAW_N,) or not bool((y > 0).all()) \
+                or not abs(z) <= DRAW_Z:
+            raise AssertionError(f"17c: draws of {label} on the card are off")
+
+
+def run_transformed(card):
+    """Phase 17: the logprob engine's elementwise chains on the card;
+    returns {path: {kernel: launches}}. No CUDA graph capture may fail
+    while it runs."""
+    failures = CaptureFailures()
+    t0 = time.perf_counter()
+    try:
+        launches, lognormal = run_lognormal_radon(card, failures)
+        phase("17b every chain of the registry on the card; the lognormal GLM's CUDA graph")
+        check_chains_on_card(card)
+        check_logp_on_card("radon lognormal (17a)", lognormal)
+        check_graphed("radon lognormal (17a)", lognormal, 64, card, must_capture=True, calls=5)
+        if failures.messages:
+            raise AssertionError(f"17b: {failures.messages}")
+        phase("17c pm.draw of exp(Normal) on the card")
+        check_lognormal_draws(card)
+    finally:
+        failures.close()
+    print(f"phase 17 wall {time.perf_counter() - t0:.1f} s")
+    return {"radon lognormal": launches}
+
+
 def pair_records(launches, errs, times, shape):
     """The pair's records of the `kernels` line, timed at `shape`."""
     records = []
@@ -3548,6 +3775,7 @@ def main():
     paths.update(mv_paths)
     paths.update(run_timeseries(card))
     paths.update(run_custom(card))
+    paths.update(run_transformed(card))
     total = {k: sum(p[k] for p in paths.values()) for k in launches}
     kernels = kernel_records(total, errs, times, leaf, chol_err, chol_times)
     print("launches: " + "; ".join(f"{name} {p}" for name, p in paths.items()))

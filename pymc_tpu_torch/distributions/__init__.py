@@ -16,6 +16,7 @@ from .multivariate import __all__ as _mv_all
 from .simulator import Simulator
 from .timeseries import *  # noqa: F401,F403
 from .timeseries import __all__ as _ts_all
+from .transformed import TransformedDistribution, dist_from_expression
 from .truncated import Truncated
 
 __all__ = [
@@ -24,4 +25,5 @@ __all__ = [
     *[n for n in _mix_all if n != "MixtureTransformWarning"],
     *_ts_all, "Censored", "Truncated", "CustomDist", "DensityDist", "Simulator", "Discretized",
     "OrderStatistic", "Max", "Min", "CumSum", "Compared", "moments", "shape_utils",
+    "TransformedDistribution", "dist_from_expression",
 ]

@@ -9,14 +9,12 @@ on the card) and return tensors:
   random(*params, rng=generator, size=shape): draws from a torch.Generator
       on the parameters' device (the JAX package passes a key)
   support_point(*params) (or moment=): an initial value
-  dist(*params, size): a generating function that returns a Distribution
-      or a random variable, whose density, cdf, draws, support point and
-      transform then serve where no explicit callable is given.
-
-A `dist=` that returns a derived expression (a Node built from random
-variables) waits for the logprob engine (`distributions/transformed.py`,
-the ROADMAP item on the logprob engine) and raises NotImplementedError, as
-`pm.logp` of such an expression does.
+  dist(*params, size): a generating function that returns a Distribution,
+      a random variable or a random expression over unnamed `.dist()`
+      objects (`pm.math.exp(pm.Normal.dist(mu, sigma, size=size))`), whose
+      distribution (derived by `distributions/transformed.py` for an
+      expression) serves its density, cdf, draws, support point and
+      transform where no explicit callable is given.
 
 The logp runs inside the samplers' `torch.func.vmap` and, on the card, in
 the logp+grad that `Model.logp_dlogp_fn` captures in a CUDA graph: a logp
@@ -34,6 +32,7 @@ import torch
 from ..config import intX
 from ..graph import FreeRV, Node, ObservedRV
 from .distribution import Distribution, as_param
+from .transformed import dist_from_expression
 
 __all__ = ["CustomDist", "DensityDist"]
 
@@ -87,12 +86,7 @@ class CustomDist(Distribution):
         elif isinstance(expr, (FreeRV, ObservedRV)):
             derived = expr.dist
         elif isinstance(expr, Node):
-            raise NotImplementedError(
-                f"{self._name}: a dist= that returns a derived expression needs the logprob "
-                "engine (distributions/transformed.py, the ROADMAP item on the logprob "
-                "engine), not ported to pymc_tpu_torch yet; return a distribution, or give "
-                "logp="
-            )
+            derived = dist_from_expression(expr)
         else:
             raise TypeError(
                 f"{self._name}: dist= must return a distribution or a random expression "

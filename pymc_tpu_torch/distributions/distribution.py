@@ -23,7 +23,7 @@ import numpy as np
 import torch
 
 from ..config import intX
-from ..graph import Node, apply, as_node, evaluate
+from ..graph import FreeRV, Node, apply, as_node, evaluate
 from . import transforms as tr
 from .dist_math import check_icdf_value, log1mexp
 
@@ -39,6 +39,8 @@ class _Unset:
 
 
 UNSET = _Unset()
+# numbers the anonymous random-variable nodes of unnamed distributions
+_ANON_RV_COUNTER = 0
 
 
 def standard_normal(generator, shape, like):
@@ -76,6 +78,85 @@ class Distribution:
     event_ndim: int = 0
     support: str = "real"
     is_discrete: bool = False
+    # graph.apply and pm.math lift an unnamed distribution among their
+    # operands to its anonymous random-variable node (`to_node`), so that an
+    # expression over `.dist()` objects is a graph the logprob engine derives
+    # a density from (pymc_tpu/distributions/distribution.py:114-189)
+    _lift_to_node: bool = True
+    __array_ufunc__ = None  # numpy defers to the reflected operators below
+    __array_priority__ = 1000
+
+    def to_node(self, name=None):
+        """The anonymous FreeRV of this unnamed distribution, made once and
+        cached: reusing one `.dist()` object reuses one random leaf (`x =
+        Normal.dist(); x + x` is 2x, not the sum of two draws)."""
+        node = getattr(self, "_anon_node", None)
+        if node is None:
+            global _ANON_RV_COUNTER
+            _ANON_RV_COUNTER += 1
+            node = FreeRV(name or f"_anon_rv_{_ANON_RV_COUNTER}", dist=self,
+                          shape=self.shape, dtype=self.dtype)
+            self._anon_node = node
+        return node
+
+    # arithmetic over unnamed distributions builds graph expressions through
+    # the anonymous node
+    def __add__(self, o):
+        return self.to_node() + o
+
+    def __radd__(self, o):
+        return o + self.to_node()
+
+    def __sub__(self, o):
+        return self.to_node() - o
+
+    def __rsub__(self, o):
+        return o - self.to_node()
+
+    def __mul__(self, o):
+        return self.to_node() * o
+
+    def __rmul__(self, o):
+        return o * self.to_node()
+
+    def __truediv__(self, o):
+        return self.to_node() / o
+
+    def __rtruediv__(self, o):
+        return o / self.to_node()
+
+    def __pow__(self, o):
+        return self.to_node() ** o
+
+    def __rpow__(self, o):
+        return o ** self.to_node()
+
+    def __neg__(self):
+        return -self.to_node()
+
+    def __abs__(self):
+        return abs(self.to_node())
+
+    def __matmul__(self, o):
+        return self.to_node() @ o
+
+    def __rmatmul__(self, o):
+        return o @ self.to_node()
+
+    def __getitem__(self, idx):
+        return self.to_node()[idx]
+
+    def __gt__(self, o):
+        return self.to_node() > o
+
+    def __lt__(self, o):
+        return self.to_node() < o
+
+    def __ge__(self, o):
+        return self.to_node() >= o
+
+    def __le__(self, o):
+        return self.to_node() <= o
 
     def __new__(cls, name=None, *args, **kwargs):
         """Named-RV path: create the distribution and register it in the

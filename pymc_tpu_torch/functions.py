@@ -3,14 +3,11 @@
 Counterpart of `pymc_tpu/functions.py` (:47-117; reference
 pymc/logprob/basic.py:105,206,307,372 pm.logp, pm.logcdf, pm.logccdf,
 pm.icdf, and pymc/sampling/forward.py:397 pm.draw): each dispatches on a
-Distribution or a random-variable node.
-
-Left out against the JAX package, raising NotImplementedError with the
-ROADMAP item it waits for: the density, cdf or quantile of a derived
-expression, an invertible elementwise transform of one random variable
-(the item on the logprob engine, `distributions/transformed.py`). `draw`
-of an expression (a Deterministic) works: its random ancestors are drawn
-and it is evaluated.
+Distribution, a random-variable node or a random expression, whose
+distribution the logprob engine derives (`distributions/transformed.py`:
+an invertible elementwise chain over one random variable, or a fold of
+one; random variables named in `env` are conditioned on). `draw` of an
+expression (a Deterministic) draws its random ancestors and evaluates it.
 """
 
 from __future__ import annotations
@@ -20,22 +17,23 @@ import torch
 
 from .config import floatX, resolve_device
 from .distributions.distribution import Distribution
+from .distributions.transformed import conditioned_on, dist_from_expression
 from .graph import FreeRV, Node, ObservedRV, ancestors, evaluate, place_constants
 
 __all__ = ["logp", "logcdf", "logccdf", "icdf", "draw"]
 
 
-def _dist_of(rv):
+def _dist_of(rv, env=None):
     if isinstance(rv, Distribution):
         return rv
     if isinstance(rv, (FreeRV, ObservedRV)):
         return rv.dist
     if isinstance(rv, Node):
-        raise NotImplementedError(
-            "The density of a derived expression is not ported to pymc_tpu_torch yet: it "
-            "waits for the logprob engine (distributions/transformed.py, the ROADMAP item on "
-            "the logprob engine)"
-        )
+        # the random variables named in env are constants of this density,
+        # as the reference's conditional_logp treats every other valued
+        # variable (logprob/basic.py:206)
+        with conditioned_on(env.keys() if isinstance(env, dict) else ()):
+            return dist_from_expression(rv)
     raise TypeError(
         f"Expected a Distribution or random-variable node, got {type(rv).__name__}."
     )
@@ -53,25 +51,25 @@ def _memo(dist, value, memo):
 
 def logp(rv, value, env=None, memo=None):
     """Elementwise log-density of `rv` at `value`."""
-    dist = _dist_of(rv)
+    dist = _dist_of(rv, env)
     return dist.logp(value, env, _memo(dist, value, memo))
 
 
 def logcdf(rv, value, env=None, memo=None):
     """Elementwise log of the cdf of `rv` at `value`."""
-    dist = _dist_of(rv)
+    dist = _dist_of(rv, env)
     return dist.logcdf(value, env, _memo(dist, value, memo))
 
 
 def logccdf(rv, value, env=None, memo=None):
     """Elementwise log of the survival function of `rv` at `value`."""
-    dist = _dist_of(rv)
+    dist = _dist_of(rv, env)
     return dist.logccdf(value, env, _memo(dist, value, memo))
 
 
 def icdf(rv, q, env=None, memo=None):
     """The quantile function of `rv` at `q`; NaN for q outside [0, 1]."""
-    dist = _dist_of(rv)
+    dist = _dist_of(rv, env)
     return dist.icdf(q, env, _memo(dist, q, memo))
 
 
@@ -95,7 +93,8 @@ def _random_ancestors(node):
 def _draw(rv, draws, gen, device):
     if isinstance(rv, (list, tuple)):
         return [_draw(r, draws, gen, device) for r in rv]
-    if isinstance(rv, Node) and _random_ancestors(rv) != [rv]:
+    if isinstance(rv, Node) and not (isinstance(rv, (FreeRV, ObservedRV))
+                                     and len(_random_ancestors(rv)) == 1):
         return _draw_expression(rv, draws, gen, device)
     dist = _dist_of(rv)
     memo = place_constants(dist.inputs(), device, floatX(device))

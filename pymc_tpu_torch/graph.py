@@ -38,6 +38,8 @@ __all__ = [
     "apply",
     "ancestors",
     "place_constants",
+    "lift",
+    "structural",
 ]
 
 
@@ -74,16 +76,38 @@ def evaluate(x, env=None, memo=None):
     return x._eval(env if env is not None else {}, memo)
 
 
+def lift(args):
+    """`args` with each unnamed distribution (a `.dist()` object) replaced
+    by its anonymous random-variable node (`Distribution.to_node`), so that
+    an expression over `.dist()` objects builds the graph the logprob engine
+    derives a density from (pymc_tpu/graph.py:105-109)."""
+    if not any(getattr(a, "_lift_to_node", False) for a in args):
+        return args
+    return tuple(a.to_node() if getattr(a, "_lift_to_node", False) else a for a in args)
+
+
+def structural(fn, kind):
+    """`fn`, tagged with the structural form its node builds ("a join", "a
+    reduction", ...), which the logprob engine (distributions/
+    transformed.py) names when it meets one; for closures, whose identity
+    no table can hold."""
+    fn._structural = kind
+    return fn
+
+
 def apply(fn, *args, **kwargs):
     """Apply `fn` symbolically if any argument is a Node, else eagerly.
 
-    Array-like operands (numpy arrays, lists, tensors) of a symbolic call
-    become ConstantNodes so that they move to the device with the model;
-    Python numbers stay static arguments, except a float beside an integer
-    or boolean Node (a discrete variable): it becomes a float constant too,
-    so that `0.1 * k` comes out in the model's float type as in the JAX
-    package, not in torch's default float32. kwargs must be static.
+    Unnamed distributions among the operands lift to their anonymous
+    random-variable nodes (`lift`). Array-like operands (numpy arrays,
+    lists, tensors) of a symbolic call become ConstantNodes so that they
+    move to the device with the model; Python numbers stay static
+    arguments, except a float beside an integer or boolean Node (a discrete
+    variable): it becomes a float constant too, so that `0.1 * k` comes out
+    in the model's float type as in the JAX package, not in torch's default
+    float32. kwargs must be static.
     """
+    args = lift(args)
     if any(isinstance(a, Node) for a in args):
         promote = any(isinstance(a, Node) and not a.dtype.is_floating_point for a in args)
         args = tuple(
@@ -268,14 +292,14 @@ class Node:
 
     def __getitem__(self, idx):
         if isinstance(idx, _INDEX_ARRAYS):
-            return apply(lambda x, ix: x[ix], self, idx)
+            return apply(structural(lambda x, ix: x[ix], "an index"), self, idx)
         if isinstance(idx, tuple):
             # the arrays of a tuple index (a[county, 0]) become graph
             # inputs too, so they move to the device with the model
             pos = [i for i, ix in enumerate(idx) if isinstance(ix, _INDEX_ARRAYS)]
             if pos:
                 return apply(_tuple_index, self, *[idx[i] for i in pos], index=idx, pos=pos)
-        return apply(lambda x: x[idx], self)
+        return apply(structural(lambda x: x[idx], "an index"), self)
 
     @staticmethod
     def _operand_ok(o):

@@ -25,7 +25,7 @@ import torch
 
 from .config import floatX as _floatX
 from .distributions import dist_math as _dm
-from .graph import Node, apply, as_node, as_tensor as _as_tensor
+from .graph import Node, apply, as_node, as_tensor as _as_tensor, lift, structural
 from .ops import special as _special
 from .ops.linalg import cholesky_batched as _cholesky_batched
 
@@ -69,9 +69,11 @@ def _tensor(x):
 
 
 def _call(fn, args, kwargs=None):
-    """fn(*args, **kwargs): a graph node when an argument is a Node (the
-    other arguments become constants), else computed at once."""
+    """fn(*args, **kwargs): a graph node when an argument is a Node or an
+    unnamed distribution (the other arguments become constants), else
+    computed at once."""
     kwargs = kwargs or {}
+    args = lift(tuple(args))
     if builtins.any(isinstance(a, Node) for a in args):
         return apply(fn, *[as_node(a) for a in args], **kwargs)
     return fn(*[_tensor(a) for a in args], **kwargs)
@@ -212,7 +214,8 @@ def exprel(x):
 
 # reductions / linalg
 def sum(x, axis=None, keepdims=False):  # noqa: A001
-    return _call(lambda v: _reduce(torch.sum, v, axis, keepdims), (x,))
+    return _call(structural(lambda v: _reduce(torch.sum, v, axis, keepdims), "a reduction"),
+                 (x,))
 
 
 def prod(x, axis=None, keepdims=False):
@@ -224,11 +227,13 @@ def mean(x, axis=None, keepdims=False):
 
 
 def max(x, axis=None, keepdims=False):  # noqa: A001
-    return _call(lambda v: torch.amax(v, dim=_axes(v, axis), keepdim=keepdims), (x,))
+    return _call(structural(lambda v: torch.amax(v, dim=_axes(v, axis), keepdim=keepdims),
+                            "a reduction"), (x,))
 
 
 def min(x, axis=None, keepdims=False):  # noqa: A001
-    return _call(lambda v: torch.amin(v, dim=_axes(v, axis), keepdim=keepdims), (x,))
+    return _call(structural(lambda v: torch.amin(v, dim=_axes(v, axis), keepdim=keepdims),
+                            "a reduction"), (x,))
 
 
 maximum = _wrap(torch.maximum)
@@ -380,11 +385,11 @@ def clip(x, lo, hi):
 
 
 def concatenate(xs, axis=0):
-    return _call(lambda *vs: torch.cat(vs, dim=axis), tuple(xs))
+    return _call(structural(lambda *vs: torch.cat(vs, dim=axis), "a join"), tuple(xs))
 
 
 def stack(xs, axis=0):
-    return _call(lambda *vs: torch.stack(vs, dim=axis), tuple(xs))
+    return _call(structural(lambda *vs: torch.stack(vs, dim=axis), "a join"), tuple(xs))
 
 
 def full(shape, fill_value, dtype=None):
@@ -409,8 +414,9 @@ or_ = _wrap(torch.logical_or)
 
 
 def cumsum(x, axis=None):
-    return _call(lambda v: torch.cumsum(v.reshape(-1) if axis is None else v,
-                                        0 if axis is None else axis), (x,))
+    return _call(structural(lambda v: torch.cumsum(v.reshape(-1) if axis is None else v,
+                                                   0 if axis is None else axis), "a cumsum"),
+                 (x,))
 
 
 def cumprod(x, axis=None):
@@ -442,11 +448,11 @@ def any(x, axis=None):  # noqa: A001
 
 
 def argmax(x, axis=None):
-    return _call(lambda v: torch.argmax(v, dim=axis), (x,))
+    return _call(structural(lambda v: torch.argmax(v, dim=axis), "an argmax"), (x,))
 
 
 def argmin(x, axis=None):
-    return _call(lambda v: torch.argmin(v, dim=axis), (x,))
+    return _call(structural(lambda v: torch.argmin(v, dim=axis), "an argmin"), (x,))
 
 
 def argsort(x, axis=-1):
@@ -454,7 +460,8 @@ def argsort(x, axis=-1):
 
 
 def broadcast_to(x, shape):
-    return _call(lambda v: torch.broadcast_to(v, tuple(shape)), (x,))
+    return _call(structural(lambda v: torch.broadcast_to(v, tuple(shape)), "a broadcast"),
+                 (x,))
 
 
 diag = _wrap(torch.diag)
@@ -468,15 +475,15 @@ def expand_dims(x, axis):
             v = v.unsqueeze(a)
         return v
 
-    return _call(_expand, (x,))
+    return _call(structural(_expand, "a layout"), (x,))
 
 
 def flatten(x):
-    return _call(lambda v: v.reshape(-1), (x,))
+    return _call(structural(lambda v: v.reshape(-1), "a layout"), (x,))
 
 
 def moveaxis(x, source, destination):
-    return _call(lambda v: torch.movedim(v, source, destination), (x,))
+    return _call(structural(lambda v: torch.movedim(v, source, destination), "a layout"), (x,))
 
 
 def repeat(x, repeats, axis=None):
@@ -484,8 +491,8 @@ def repeat(x, repeats, axis=None):
 
 
 def reshape(x, shape):
-    return _call(lambda v: torch.reshape(v, tuple(shape) if not isinstance(shape, int)
-                                         else (shape,)), (x,))
+    return _call(structural(lambda v: torch.reshape(v, tuple(shape) if not isinstance(shape, int)
+                                                    else (shape,)), "a layout"), (x,))
 
 
 def sort(x, axis=-1):
@@ -496,7 +503,8 @@ sqr = square
 
 
 def squeeze(x, axis=None):
-    return _call(lambda v: torch.squeeze(v) if axis is None else torch.squeeze(v, axis), (x,))
+    return _call(structural(lambda v: torch.squeeze(v) if axis is None else torch.squeeze(v, axis),
+                            "a layout"), (x,))
 
 
 def std(x, axis=None, keepdims=False):
@@ -510,7 +518,7 @@ def var(x, axis=None, keepdims=False):
 
 
 def swapaxes(x, axis1, axis2):
-    return _call(lambda v: torch.swapaxes(v, axis1, axis2), (x,))
+    return _call(structural(lambda v: torch.swapaxes(v, axis1, axis2), "a layout"), (x,))
 
 
 def take(x, indices, axis=None):
@@ -538,8 +546,8 @@ trace = _wrap(_trace)
 
 
 def transpose(x, axes=None):
-    return _call(lambda v: v.permute(tuple(reversed(range(v.ndim))) if axes is None
-                                     else tuple(axes)), (x,))
+    return _call(structural(lambda v: v.permute(tuple(reversed(range(v.ndim))) if axes is None
+                                                else tuple(axes)), "a layout"), (x,))
 
 
 tril = _wrap(torch.tril)

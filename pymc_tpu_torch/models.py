@@ -68,7 +68,8 @@ __all__ = [
     "SURVIVAL_SCALARS", "SURVIVAL_TRUTH",
     "stochastic_volatility_data", "stochastic_volatility_model", "SV_SAMPLE_KWARGS",
     "SV_SMOKE_KWARGS", "SV_SCALARS", "TIMESERIES_MODELS", "timeseries_model", "TS_COV",
-    "radon_custom_model", "RADON_SCALARS", "abc_data", "abc_simulate", "abc_simulator_model",
+    "radon_custom_model", "radon_lognormal_model", "RADON_SCALARS", "abc_data", "abc_simulate",
+    "abc_simulator_model",
     "ABC_SMC_KWARGS", "ABC_SEEDS", "derived_data", "derived_model", "DERIVED_SAMPLE_KWARGS",
     "DERIVED_SMOKE_KWARGS", "DERIVED_SCALARS", "SLICE_MODELS", "slice_model",
 ]
@@ -873,26 +874,48 @@ def _normal_logp_by_hand(pm):
     return logp
 
 
-def radon_custom_model(pm=None, name="radon"):
+def _radon_glm(pm, likelihood):
     """`bench.build_model`'s radon GLM (the same data, priors and 175 free
-    values) inside `pm.Model(name=name)`, so every name carries "radon::",
-    with its likelihood a CustomDist whose logp is the Normal log-density
-    written by hand."""
+    values) in the current model, its likelihood `likelihood(mu_y,
+    sigma_y, log_radon)`."""
+    county, floor_x, log_radon = radon_data()
+    mu_a = pm.Normal("mu_a", 0.0, 10.0)
+    sigma_a = pm.HalfCauchy("sigma_a", 5.0)
+    mu_b = pm.Normal("mu_b", 0.0, 10.0)
+    sigma_b = pm.HalfCauchy("sigma_b", 5.0)
+    a_t = pm.Normal("a_t", 0.0, 1.0, dims="county")
+    b_t = pm.Normal("b_t", 0.0, 1.0, dims="county")
+    a = pm.Deterministic("a", mu_a + sigma_a * a_t, dims="county")
+    b = pm.Deterministic("b", mu_b + sigma_b * b_t, dims="county")
+    sigma_y = pm.HalfCauchy("sigma_y", 5.0)
+    likelihood(a[county] + b[county] * floor_x, sigma_y, log_radon)
+
+
+def radon_custom_model(pm=None, name="radon"):
+    """`bench.build_model`'s radon GLM inside `pm.Model(name=name)`, so
+    every name carries "radon::", with its likelihood a CustomDist whose
+    logp is the Normal log-density written by hand."""
     if pm is None:
         import pymc_tpu_torch as pm
-    county, floor_x, log_radon = radon_data()
     with pm.Model(name=name, coords={"county": np.arange(85)}) as model:
-        mu_a = pm.Normal("mu_a", 0.0, 10.0)
-        sigma_a = pm.HalfCauchy("sigma_a", 5.0)
-        mu_b = pm.Normal("mu_b", 0.0, 10.0)
-        sigma_b = pm.HalfCauchy("sigma_b", 5.0)
-        a_t = pm.Normal("a_t", 0.0, 1.0, dims="county")
-        b_t = pm.Normal("b_t", 0.0, 1.0, dims="county")
-        a = pm.Deterministic("a", mu_a + sigma_a * a_t, dims="county")
-        b = pm.Deterministic("b", mu_b + sigma_b * b_t, dims="county")
-        sigma_y = pm.HalfCauchy("sigma_y", 5.0)
-        mu_y = a[county] + b[county] * floor_x
-        pm.CustomDist("y", mu_y, sigma_y, logp=_normal_logp_by_hand(pm), observed=log_radon)
+        _radon_glm(pm, lambda mu_y, sigma_y, log_radon: pm.CustomDist(
+            "y", mu_y, sigma_y, logp=_normal_logp_by_hand(pm), observed=log_radon))
+    return model
+
+
+def radon_lognormal_model(pm=None):
+    """`bench.build_model`'s radon GLM with its likelihood a CustomDist
+    derived from exp of a Normal (`dist=`), observed on exp(log_radon): the
+    lognormal density of the radon levels is the Normal one of their logs
+    less sum(log y), a constant, so the posterior is the radon GLM's.
+    Either package builds it (`pm`)."""
+    if pm is None:
+        import pymc_tpu_torch as pm
+    with pm.Model(coords={"county": np.arange(85)}) as model:
+        _radon_glm(pm, lambda mu_y, sigma_y, log_radon: pm.CustomDist(
+            "y", mu_y, sigma_y,
+            dist=lambda mu, s, size: pm.math.exp(pm.Normal.dist(mu, s, size=size)),
+            observed=np.exp(log_radon)))
     return model
 
 

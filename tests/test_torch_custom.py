@@ -3,11 +3,11 @@ CPU. The specification is `tests/distributions/test_custom_depth.py` and
 the forms of `test_custom_symbolic.py` that need no logprob engine:
 logp=, logcdf=, random= (a torch.Generator where pymc_tpu passes a key),
 support_point= and moment=, signature=, ndim_supp/ndims_params, dtype and
-transform=, and dist= returning a distribution or a random variable. The
-densities are held to pymc_tpu's at rtol 1e-12 (one jitted call for all of
-pymc_tpu's values); draws by their shapes and moments. A dist= that
-returns a derived expression raises NotImplementedError naming the logprob
-engine, as `pm.logp` of such an expression does in the port.
+transform=, and dist= returning a distribution, a random variable or a
+derived expression (the logprob engine's; tests/test_torch_transformed.py
+holds its forms). The densities are held to pymc_tpu's at rtol 1e-12 (one
+jitted call for all of pymc_tpu's values); draws by their shapes and
+moments.
 """
 
 import functools
@@ -194,8 +194,8 @@ def test_logcdf_dtype_and_aliases():
 
 
 def test_dist_forms():
-    """dist= returning a distribution or a random variable serves logp,
-    logcdf and draws; explicit callables win; a derived expression raises."""
+    """dist= returning a distribution, a random variable or a derived
+    expression serves logp, logcdf and draws; explicit callables win."""
     ref = pmj.CustomDist.dist(0.5, dist=lambda mu, size: pmj.Normal.dist(mu, 2.0, size=size),
                               size=(3,))
     got = pmt.CustomDist.dist(0.5, dist=lambda mu, size: pmt.Normal.dist(mu, 2.0, size=size),
@@ -214,10 +214,18 @@ def test_dist_forms():
         rv = pmt.Normal("base", 1.0, 1.0)
         from_rv = pmt.CustomDist.dist(dist=lambda size: rv)
     assert from_rv.logp(torch.tensor(1.0)).item() == pytest.approx(st.norm.logpdf(0.0))
-    with pytest.raises(NotImplementedError, match="logprob engine"):
-        with pmt.Model():
-            mu = pmt.Normal("mu", 0.0, 1.0)
-            pmt.CustomDist("e", mu, dist=lambda mu, size: pmt.math.exp(mu))
+    # exp of the model's mu: its density derived by the logprob engine, as
+    # pymc_tpu's is
+    def exp_of_mu(pm):
+        with pm.Model() as m:
+            mu = pm.Normal("mu", 0.0, 1.0)
+            pm.CustomDist("e", mu, dist=lambda mu, size: pm.math.exp(mu))
+        return m["e"].dist
+
+    v = np.array([0.3, 1.0, 4.0])
+    for fn in ("logp", "logcdf"):
+        np.testing.assert_allclose(getattr(exp_of_mu(pmt), fn)(torch.tensor(v)).numpy(),
+                                   np.asarray(getattr(exp_of_mu(pmj), fn)(v)), rtol=1e-12)
     with pytest.raises(TypeError, match="must return a distribution"):
         pmt.CustomDist.dist(1.0, dist=lambda mu, size: 3.0)
     with pytest.raises(TypeError, match="requires logp="):

@@ -190,8 +190,8 @@ def test_pm_icdf_dispatches_to_the_distribution():
     np.testing.assert_allclose(_np(pmt.icdf(pmt.Weibull.dist(1.6, 2.0), q)),
                                np.asarray(pmj.icdf(pmj.Weibull.dist(1.6, 2.0), q)), rtol=1e-12)
     assert mt["x"] is x and mj["x"] is xj
-    with pytest.raises(NotImplementedError, match="logprob engine"):
-        pmt.icdf(2.0 * x, q)
+    np.testing.assert_allclose(_np(pmt.icdf(2.0 * x, q)), np.asarray(pmj.icdf(2.0 * xj, q)),
+                               rtol=1e-12)
     with pytest.raises(NotImplementedError, match="icdf not implemented for Poisson"):
         pmt.Poisson.dist(3.0).icdf(torch.tensor([0.5], dtype=torch.float64))
 

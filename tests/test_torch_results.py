@@ -354,18 +354,25 @@ def test_functional_densities_of_model_variables():
 
 
 def test_icdf_and_derived_densities_raise():
-    # named when pm.icdf raised too; now its quantiles match pymc_tpu's,
-    # and only a derived expression's density or quantile raises
+    # named when pm.icdf and the derived densities raised; now the quantiles
+    # and a derived expression's density and quantile match pymc_tpu's, and
+    # shifted = mu + 2 sigma raises as in pymc_tpu unless sigma is given
     mt, mj = normal_model(pmt), normal_model(pmj)
     q = np.array([0.1, 0.5, 0.9])
     np.testing.assert_allclose(_np(pmt.icdf(pmt.Normal.dist(0.0, 1.0), q)),
                                np.asarray(pmj.icdf(pmj.Normal.dist(0.0, 1.0), q)), rtol=1e-12)
     np.testing.assert_allclose(_np(pmt.icdf(mt["sigma"], q)), np.asarray(pmj.icdf(mj["sigma"], q)),
                                rtol=1e-12)
-    with pytest.raises(NotImplementedError, match="logprob engine"):
-        pmt.logp(mt["shifted"], np.array([1.0]))
-    with pytest.raises(NotImplementedError, match="logprob engine"):
-        pmt.icdf(mt["shifted"], q)
+    env_t = {"sigma": torch.tensor(0.7, dtype=torch.float64)}
+    env_j = {"sigma": jax.numpy.float64(0.7)}
+    for pm, m in ((pmt, mt), (pmj, mj)):
+        with pytest.raises(TypeError, match="exactly one random operand"):
+            pm.logp(m["shifted"], np.array([1.0]))
+    np.testing.assert_allclose(_np(pmt.logp(mt["shifted"], np.array([1.0]), env=env_t)),
+                               _np(pmj.logp(mj["shifted"], np.array([1.0]), env=env_j)),
+                               rtol=1e-12)
+    np.testing.assert_allclose(_np(pmt.icdf(mt["shifted"], q, env=env_t)),
+                               _np(pmj.icdf(mj["shifted"], q, env=env_j)), rtol=1e-12)
 
 
 def _z(got, ref):
