@@ -279,6 +279,29 @@ Phases, in order; any failure ends the script with a non-zero exit:
                 logp+grad from a CUDA graph bitwise equal to eager; 17c.
                 pm.draw of exp(Normal(mu, s)) and of a CustomDist of it on
                 the card: the mean of log y within 4 standard errors of mu
+  18. forms   — the logprob engine's structural matchers: 18a.
+                models.survival_minimum_model (the survival example, its
+                likelihood a CustomDist(dist=minimum(Weibull, t_end)),
+                derived as Censored(Weibull, upper=t_end)): its float32
+                logp+grad at (64, 3) is survival_model's
+                (SURVIVAL_MINIMUM_RTOL), then sampled at
+                SURVIVAL_SMOKE_KWARGS as phase 15a samples its model:
+                phase 5's launch identities, R-hat < 1.05, the means
+                within 5 combined MCSE of tests/data/
+                torch_survival_reference.json and within 0.25 of the
+                truth; 18b. every structural form (structural_cases:
+                censoring, rounding, casts, broadcast, the layouts, joins,
+                cumsum, indexing, the index and switch mixtures, the
+                argmax/argmin races, sums of Normals, max/min, A @ x): logp
+                and its gradient, logcdf, logccdf and icdf where the form
+                has them, float32 on the card against float64 on the CPU
+                (FORM_TOL; -inf, 0 and NaN exact); models.
+                STRUCTURAL_MODELS' logp/grad against the CPU and their
+                logp+grad at 64 chains from a CUDA graph bitwise equal to
+                eager, with no capture failure; 18c. pm.draw on the card of
+                an index mixture and of a switch mixture with a random
+                condition (each a CustomDist(dist=)): each component's
+                share within 4 standard errors of its weight
 
 Phase 3 also checks and times the Cholesky at SMC's (4, 3) stack, at
 phase 9's shapes and at phase 10's (1, 175) and (1, 150), and its jvp under
@@ -3703,6 +3726,251 @@ def run_transformed(card):
     return {"radon lognormal": launches}
 
 
+# phase 18: the logprob engine's structural matchers
+# 18a: survival_minimum_model's float32 logp+grad on the card against
+# survival_model's at the same points (the same density, reached through the
+# engine): the logp within this relative error, the gradient within this
+# fraction of its largest entry
+SURVIVAL_MINIMUM_RTOL = 1e-6
+# 18b: each form's logp, its gradient in the value, logcdf, logccdf and
+# icdf, float32 on the card against float64 on the CPU, within this of
+# max(1, |CPU|); -inf, 0 and NaN exactly
+FORM_TOL = 1e-4
+# 18c: draws of each mixture on the card, and how many standard errors a
+# component's share may lie from its weight
+MIX_DRAWS, MIX_Z = 20_000, 4.0
+
+
+def _given(pm, spec):
+    """A model of the named random variables `spec` {name: (class, args,
+    kwargs)}; returns {name: node}."""
+    with pm.Model() as m:
+        for name, (cls, args, kw) in spec.items():
+            getattr(pm, cls)(name, *args, **kw)
+    return {name: m[name] for name in spec}
+
+
+def structural_cases(pm):
+    """(label, expression, values, fns, env) of 18b: each structural form at
+    values inside its support (at its bounds and cell edges where it has
+    them), `fns` the functions of the logp family it has, `env` the values
+    of the random variables it is conditional on."""
+    m, n = pm.math, pm.Normal.dist
+    grid = np.array([[0.4, -1.2, 2.0], [1.1, 0.3, -0.7]])
+    cdfs = ("logp", "logcdf", "logccdf", "icdf")
+    mix = _given(pm, {"X": ("Normal", (0.0, 1.0), {}), "Y": ("Gamma", (2.0, 0.5), {}),
+                      "I": ("Categorical", (), dict(p=np.array([0.3, 0.5, 0.2])))})
+    ifelse = _given(pm, {"C": ("Normal", (2.0, 1.0), {}), "A": ("Normal", (-3.0, 1.0), {}),
+                         "B": ("Normal", (3.0, 2.0), {})})
+    with pm.Model():
+        x = pm.HalfNormal("x", sigma=1.0)
+        z = pm.Normal("z", mu=0.0, sigma=x)
+        dependent = m.stack([x, z, pm.Normal("w", mu=z, sigma=0.5)])
+    A = np.array([[2.0, 0.5], [0.3, 1.5]])
+    cases = [
+        ("clip", m.clip(n(0.3, 1.2), -1.0, 1.5), [-1.0, -0.3, 0.4, 1.5, 2.0, -1.5], cdfs),
+        ("maximum(x, 0)", m.maximum(n(0.3, 1.0), 0.0), [0.0, 0.4, 2.0, -0.1], cdfs),
+        ("minimum(Weibull, 4)", m.minimum(pm.Weibull.dist(1.6, 3.0), 4.0), [0.5, 2.0, 4.0, 4.5],
+         cdfs),
+        ("maximum(minimum)", m.maximum(m.minimum(n(0.0, 1.0), 1.0), -0.5), [-0.5, 0.0, 1.0],
+         ("logp", "logcdf")),
+    ]
+    cases += [(method, getattr(m, method)(n(0.3, 1.4)), [-2.0, -1.0, 0.0, 1.0, 3.0],
+               ("logp", "logcdf", "logccdf")) for method in ("round", "floor", "ceil", "trunc")]
+    cases += [
+        ("Poisson as float64", pm.Poisson.dist(3.0).to_node().astype("float64"),
+         [0.0, 2.0, 5.0, 2.5], ("logp", "logcdf", "logccdf")),
+        ("x as int64", n(0.3, 1.5).to_node().astype("int64"), [-2, 0, 1, 3], ("logp", "logcdf")),
+        ("broadcast_to", m.broadcast_to(n(np.array([[0.0], [1.0]]), 1.0), (4, 2, 3)),
+         np.broadcast_to(np.array([[0.1], [0.7]]), (4, 2, 3)).copy(), ("logp",)),
+        ("reshape", n(np.arange(6.0), 1.0).to_node().reshape((2, 3)), grid, cdfs),
+        ("ravel", n(np.arange(6.0).reshape(2, 3), 1.0).to_node().ravel(), grid.ravel(),
+         ("logp",)),
+        ("squeeze", n(np.arange(3.0).reshape(1, 3), 1.0).to_node().squeeze(), grid[0],
+         ("logp",)),
+        ("expand_dims", m.expand_dims(n(np.arange(3.0), 1.0), 0), grid[:1], ("logp",)),
+        (".T", n(np.arange(6.0).reshape(2, 3), 1.0).to_node().T, grid.T, ("logp", "logcdf")),
+        ("swapaxes", m.swapaxes(n(np.arange(6.0).reshape(2, 3), 1.0), 0, 1), grid.T,
+         ("logp",)),
+        ("moveaxis", m.moveaxis(n(np.arange(24.0).reshape(2, 3, 4), 2.0), 0, -1),
+         np.linspace(-1, 20, 24).reshape(3, 4, 2), ("logp", "icdf")),
+        ("stack", m.stack([n(0.0, 1.0), pm.Exponential.dist(2.0)]), [[0.3, 0.5], [-1.0, 1.5]],
+         ("logp", "logcdf", "logccdf")),
+        ("concatenate", m.concatenate([n(0.0, 1.0, size=2), pm.Gamma.dist(2.0, 1.0, size=1)]),
+         [[0.3, -0.2, 1.5], [1.0, 0.0, 0.4]], ("logp", "logcdf")),
+        ("stack with a dependent component", dependent, [0.8, -0.3, 0.1], ("logp",)),
+        ("cumsum", m.cumsum(n(0.0, 1.0, size=4)), [0.3, -0.2, 1.5, 1.0], ("logp",)),
+        ("x[1:]", n(np.arange(3.0), 1.0)[1:], grid[:, :2], ("logp", "logcdf", "icdf")),
+        ("x[1, ::2]", n(np.arange(6.0).reshape(2, 3), 1.0)[1, ::2], grid[:, :2], ("logp",)),
+    ]
+    cases += [(f"stack(X, Y)[I], I = {i}", m.stack([mix["X"], mix["Y"]])[mix["I"]],
+               [0.5, 1.3, 4.0], ("logp", "logcdf", "logccdf"), {"I": i}) for i in (0, 1, 2)]
+    cases += [
+        ("switch, RV-free condition", m.where(np.array([True, False, True]), n(0.0, 1.0, size=3),
+                                              pm.Exponential.dist(2.0, size=3)),
+         [[0.5, 0.3, -1.0], [1.2, 2.0, 0.1]], cdfs),
+        ("switch, random condition", m.where(ifelse["C"] > 0, ifelse["A"], ifelse["B"]),
+         [0.5, -2.0], ("logp", "logcdf"), {"C": -1.0}),
+        ("argmax Gumbel", m.argmax(2.0 + 3.0 * pm.Gumbel.dist(np.array([0.0, 0.5, 1.5]), 1.0)),
+         [0, 1, 2], ("logp",)),
+        ("argmin Exponential", m.argmin(pm.Exponential.dist(np.array([1.0, 2.0, 4.0]))),
+         [0, 1, 2], ("logp",)),
+        ("argmin Weibull", m.argmin(pm.Weibull.dist(1.5, np.array([1.0, 2.0, 0.5]))), [0, 1, 2],
+         ("logp",)),
+        ("sum of Normals", m.sum(n(np.array([0.0, 1.0, 2.0]), np.array([1.0, 0.5, 2.0]))),
+         [0.5, 3.0], cdfs),
+        ("max", m.max(n(0.0, 1.0, size=5)), [0.5, 1.5, -0.5], ("logp", "logcdf")),
+        ("min", m.min(pm.Exponential.dist(2.0, size=(2, 2))), [0.1, 0.5], ("logp", "logcdf")),
+        ("A @ x", A @ n(0.0, 1.0, size=2), grid[:, :2], ("logp",)),
+        ("x @ A", n(np.array([0.5, -1.0]), 1.0, size=2) @ A, grid[:, :2], ("logp",)),
+        ("A @ X", A @ n(0.0, 1.0, size=(2, 3)), grid, ("logp",)),
+    ]
+    return [c if len(c) == 5 else c + (None,) for c in cases]
+
+
+def form_values(pm, expr, values, fns, env, device, dtype):
+    """{name: tensor} of one form on `device` in `dtype`: each of `fns` at
+    `values` (icdf at a grid of q of their shape) and the logp's gradient
+    in a float value."""
+    v = torch.as_tensor(np.asarray(values), device=device)
+    if v.is_floating_point():
+        v = v.to(dtype).requires_grad_(True)
+    env = None if env is None else {k: torch.as_tensor(x, device=device, dtype=dtype
+                                                       if isinstance(x, float) else None)
+                                    for k, x in env.items()}
+    out = {}
+    for fn in fns:
+        if fn == "icdf":
+            q = torch.linspace(0.03, 0.97, v.numel(), device=device, dtype=dtype).reshape(v.shape)
+            out[fn] = pm.icdf(expr, q, env=env)
+        else:
+            out[fn] = getattr(pm, fn)(expr, v, env=env)
+    if v.requires_grad:
+        lp = out["logp"]
+        (out["dlogp"],) = torch.autograd.grad(torch.where(torch.isfinite(lp), lp, 0.0).sum(), v)
+    return {k: x.detach().double().cpu() for k, x in out.items()}
+
+
+def check_forms_on_card(card):
+    """18b: every case of structural_cases in float32 on the card against the
+    CPU in float64 (FORM_TOL; -inf, 0 and NaN exactly)."""
+    import pymc_tpu_torch as pm
+
+    worst, n_values, cases = 0.0, 0, structural_cases(pm)
+    for label, expr, values, fns, env in cases:
+        card_out = form_values(pm, expr, values, fns, env, "cuda", torch.float32)
+        cpu_out = form_values(pm, expr, values, fns, env, "cpu", torch.float64)
+        for key, ref in cpu_out.items():
+            got = card_out[key]
+            exact = ~torch.isfinite(ref) | (ref == 0)
+            if got.shape != ref.shape or not np.array_equal(got[exact].numpy(),
+                                                            ref[exact].numpy(), equal_nan=True):
+                raise AssertionError(f"18b {label} {key}: the card's {got.tolist()} against the "
+                                     f"CPU's {ref.tolist()} where -inf, 0 or NaN")
+            err = float(((got - ref).abs() / ref.abs().clamp(min=1.0))[~exact].amax()) \
+                if bool((~exact).any()) else 0.0
+            worst, n_values = max(worst, err), n_values + got.numel()
+            if not err <= FORM_TOL:
+                raise AssertionError(f"18b {label} {key}: max err {err:.3e} > {FORM_TOL:g}")
+    print(f"{len(cases)} structural forms, {n_values} values: logp, its gradient, logcdf, "
+          f"logccdf and icdf where the form has them, float32 on the card against float64 on "
+          f"the CPU, max err {worst:.3e} (tol {FORM_TOL:g}), -inf/0/NaN exact  [{card}]")
+
+
+def run_survival_minimum(card, failures):
+    """18a: models.survival_minimum_model's logp+grad against survival_model's
+    on the card, then sampled as phase 15a samples its model and checked
+    against the same fixture and truth. Returns {kernel: launches}."""
+    from pymc_tpu_torch import models
+
+    phase("18a survival with a CustomDist(dist=minimum(Weibull, t_end)) likelihood")
+    t0 = time.perf_counter()
+    q = torch.as_tensor(np.random.default_rng(0).normal(0.0, 0.5, size=(64, 3)), device="cuda",
+                        dtype=torch.float32)
+    (lp, g), (lp_c, g_c) = (build().logp_dlogp_fn(device="cuda")(q) for build in
+                            (models.survival_minimum_model, models.survival_model))
+    lp_err = float(((lp.double() - lp_c.double()).abs() / lp_c.double().abs()).max())
+    g_err = float((g - g_c).abs().max() / g_c.abs().max())
+    print(f"survival minimum logp+grad at (64, 3) against survival_model's: logp max rel err "
+          f"{lp_err:.3e}, grad {g_err:.3e} of its largest entry (tol "
+          f"{SURVIVAL_MINIMUM_RTOL:g})  [{card}]")
+    if not (lp_err <= SURVIVAL_MINIMUM_RTOL and g_err <= SURVIVAL_MINIMUM_RTOL):
+        raise AssertionError("18a: the minimum(Weibull) likelihood is not survival_model's")
+    launches, idata = run_distribution_model(
+        card, "survival minimum (18a)", models.survival_minimum_model,
+        models.SURVIVAL_SMOKE_KWARGS, models.SURVIVAL_SCALARS, SURVIVAL_REFERENCE)
+    for name, truth in models.SURVIVAL_TRUTH.items():
+        mean = float(idata.posterior[name].values.mean())
+        print(f"survival minimum {name}: mean {mean:.4f}, truth {truth} (within "
+              f"{SURVIVAL_TRUTH_TOL})")
+        if not abs(mean - truth) < SURVIVAL_TRUTH_TOL:
+            raise AssertionError(f"18a: {name} mean {mean:.4f} is off the truth {truth}")
+    if failures.messages:
+        raise AssertionError(f"18a: {failures.messages}")
+    print(f"18a wall {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
+def check_mixture_draws(card):
+    """18c: pm.draw on the card of an index mixture, stack([Normal(-10),
+    Normal(10)])[I] with I ~ Bernoulli(0.3), and of a switch mixture,
+    where(Normal(0.5, 1) > 0, Normal(-3), Normal(3)), each a
+    CustomDist(dist=): the share of the second and the first component
+    within MIX_Z standard errors of 0.3 and of P(Normal(0.5, 1) > 0)."""
+    import pymc_tpu_torch as pm
+
+    def index_mixture(p, sigma, size):
+        idx = pm.Bernoulli.dist(p=p).to_node()
+        return pm.math.stack([pm.Normal.dist(-sigma, 0.1, size=size),
+                              pm.Normal.dist(sigma, 0.1, size=size)])[idx]
+
+    def switch_mixture(mu, size):
+        return pm.math.where(pm.Normal.dist(mu, 1.0) > 0, pm.Normal.dist(-3.0, 0.5, size=size),
+                             pm.Normal.dist(3.0, 0.5, size=size))
+
+    p_switch = 0.5 * math.erfc(-0.5 / math.sqrt(2.0))
+    for label, rv, share, weight in (
+            ("index mixture", pm.CustomDist.dist(0.3, 10.0, dist=index_mixture),
+             lambda y: y > 0, 0.3),
+            ("switch mixture", pm.CustomDist.dist(0.5, dist=switch_mixture),
+             lambda y: y < 0, p_switch)):
+        y = pm.draw(rv, draws=MIX_DRAWS, random_seed=18, device="cuda")
+        frac = float(share(y).double().mean())
+        z = (frac - weight) / math.sqrt(weight * (1 - weight) / MIX_DRAWS)
+        print(f"pm.draw({label}) on the card: {tuple(y.shape)} {y.dtype} on {y.device}; share "
+              f"{frac:.4f} against {weight:.4f}, {z:+.2f} standard errors  [{card}]")
+        if y.device.type != "cuda" or y.shape != (MIX_DRAWS,) or not abs(z) <= MIX_Z:
+            raise AssertionError(f"18c: draws of the {label} on the card are off")
+
+
+def run_structural(card):
+    """Phase 18: the logprob engine's structural matchers on the card;
+    returns {path: {kernel: launches}}. No CUDA graph capture may fail
+    while it runs."""
+    from pymc_tpu_torch import models
+
+    failures = CaptureFailures()
+    t0 = time.perf_counter()
+    try:
+        launches = run_survival_minimum(card, failures)
+        phase("18b every structural form on the card; the forms' models' CUDA graphs")
+        t1 = time.perf_counter()
+        check_forms_on_card(card)
+        for name in models.STRUCTURAL_MODELS:
+            model = models.structural_model(name)
+            check_logp_on_card(f"{name} model (18b)", model)
+            check_graphed(f"{name} model (18b)", model, 64, card, must_capture=True, calls=5)
+        if failures.messages:
+            raise AssertionError(f"18b: {failures.messages}")
+        print(f"18b wall {time.perf_counter() - t1:.1f} s")
+        phase("18c pm.draw of the index and switch mixtures on the card")
+        check_mixture_draws(card)
+    finally:
+        failures.close()
+    print(f"phase 18 wall {time.perf_counter() - t0:.1f} s")
+    return {"survival minimum": launches}
+
+
 def pair_records(launches, errs, times, shape):
     """The pair's records of the `kernels` line, timed at `shape`."""
     records = []
@@ -3776,6 +4044,7 @@ def main():
     paths.update(run_timeseries(card))
     paths.update(run_custom(card))
     paths.update(run_transformed(card))
+    paths.update(run_structural(card))
     total = {k: sum(p[k] for p in paths.values()) for k in launches}
     kernels = kernel_records(total, errs, times, leaf, chol_err, chol_times)
     print("launches: " + "; ".join(f"{name} {p}" for name, p in paths.items()))

@@ -8,7 +8,7 @@ from .continuous import *  # noqa: F401,F403
 from .continuous import __all__ as _cont_all
 from .discrete import *  # noqa: F401,F403
 from .discrete import __all__ as _disc_all
-from .distribution import Continuous, Discrete, Distribution
+from .distribution import Continuous, DiracDelta, Discrete, Distribution
 from .mixture import *  # noqa: F401,F403
 from .mixture import __all__ as _mix_all
 from .multivariate import *  # noqa: F401,F403
@@ -20,7 +20,7 @@ from .transformed import TransformedDistribution, dist_from_expression
 from .truncated import Truncated
 
 __all__ = [
-    "Distribution", "Continuous", "Discrete", "transforms", *_cont_all, *_disc_all,
+    "Distribution", "Continuous", "Discrete", "DiracDelta", "transforms", *_cont_all, *_disc_all,
     *_mv_all,
     *[n for n in _mix_all if n != "MixtureTransformWarning"],
     *_ts_all, "Censored", "Truncated", "CustomDist", "DensityDist", "Simulator", "Discretized",

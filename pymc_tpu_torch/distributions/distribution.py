@@ -27,7 +27,7 @@ from ..graph import FreeRV, Node, apply, as_node, evaluate
 from . import transforms as tr
 from .dist_math import check_icdf_value, log1mexp
 
-__all__ = ["Distribution", "Continuous", "Discrete", "UNSET"]
+__all__ = ["Distribution", "Continuous", "Discrete", "DiracDelta", "UNSET"]
 
 
 class _Unset:
@@ -531,3 +531,41 @@ class Discrete(Distribution):
 
     def default_transform(self):
         return None
+
+
+class DiracDelta(Discrete):
+    """Point mass at c (pymc_tpu/distributions/distribution.py:506; reference
+    distribution.py:740): logp 0 where the value is close to c (numpy's
+    isclose) and -inf elsewhere. c keeps its own type: the draws and the
+    support point are c itself, a float or an integer."""
+
+    param_names = ("c",)
+
+    def __dist_init__(self, c):
+        self.c = c if isinstance(c, Node) else as_node(np.asarray(c))
+
+    @property
+    def dtype(self):
+        return self.c.dtype
+
+    def _cast_value(self, value, params):
+        return value if isinstance(value, torch.Tensor) else torch.as_tensor(np.asarray(value))
+
+    def _logp(self, value, c):
+        dt = torch.promote_types(value.dtype, c.dtype)
+        dt = dt if dt.is_floating_point else torch.float64
+        out = torch.where(torch.isclose(value.to(dt), c.to(dt)), 0.0, -torch.inf)
+        return out.to(dt)
+
+    def _logcdf(self, value, c):
+        dt = torch.promote_types(value.dtype, c.dtype)
+        dt = dt if dt.is_floating_point else torch.float64
+        return torch.where(value >= c, 0.0, -torch.inf).to(dt)
+
+    def sample(self, generator, sample_shape=(), env=None, memo=None):
+        if isinstance(sample_shape, int):
+            sample_shape = (sample_shape,)
+        return torch.broadcast_to(evaluate(self.c, env, memo), tuple(sample_shape) + self.shape)
+
+    def support_point(self, env=None, memo=None):
+        return torch.broadcast_to(evaluate(self.c, env, memo), self.shape)

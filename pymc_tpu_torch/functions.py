@@ -5,9 +5,11 @@ pymc/logprob/basic.py:105,206,307,372 pm.logp, pm.logcdf, pm.logccdf,
 pm.icdf, and pymc/sampling/forward.py:397 pm.draw): each dispatches on a
 Distribution, a random-variable node or a random expression, whose
 distribution the logprob engine derives (`distributions/transformed.py`:
-an invertible elementwise chain over one random variable, or a fold of
-one; random variables named in `env` are conditioned on). `draw` of an
-expression (a Deterministic) draws its random ancestors and evaluates it.
+an invertible elementwise chain over one random variable, a fold of one,
+or a structural form: censoring, rounding, a join, an index or switch
+mixture, a matmul, ...; random variables named in `env` are conditioned
+on). `draw` of an expression (a Deterministic) draws its random ancestors
+and evaluates it.
 """
 
 from __future__ import annotations

@@ -86,12 +86,15 @@ def lift(args):
     return tuple(a.to_node() if getattr(a, "_lift_to_node", False) else a for a in args)
 
 
-def structural(fn, kind):
+def structural(fn, kind, **params):
     """`fn`, tagged with the structural form its node builds ("a join", "a
-    reduction", ...), which the logprob engine (distributions/
-    transformed.py) names when it meets one; for closures, whose identity
-    no table can hold."""
+    reduction", ...) and the parameters the logprob engine (distributions/
+    transformed.py) reads to derive its density (a join's kind and axis, a
+    reduction's op, axis and keepdims, an index, a layout); for closures,
+    whose identity no table can hold and whose parameters no node kwarg
+    carries (pymc_tpu/math.py's and graph.py's `_measurable_*` markers)."""
     fn._structural = kind
+    fn._structural_params = params
     return fn
 
 
@@ -186,13 +189,41 @@ def _dot(a, b):
     return torch.tensordot(a, b, dims=([a.ndim - 1], [max(b.ndim - 2, 0)]))
 
 
+def _scalar_int(ix):
+    return ix.ndim == 0 and not ix.dtype.is_floating_point and ix.dtype != torch.bool
+
+
+def _index_by(x, ix):
+    """x[ix] for an index array, or for a 0-d integer index read on the
+    device (torch reads a 0-d index on the host, which neither the meta
+    device nor vmap allows): a random index selects this way."""
+    if ix.is_floating_point():
+        raise TypeError("indices must be integers or booleans")
+    if _scalar_int(ix):
+        return x[ix.reshape(1)][0]
+    return x[ix]
+
+
 def _tuple_index(x, *arrays, index, pos):
     """x[index] with the arrays of the tuple `index` (at `pos`) taken from
-    `arrays`, the graph inputs that carry them."""
+    `arrays`, the graph inputs that carry them; where each is a 0-d integer
+    (a random index), axis by axis on the device, as `_index_by`."""
     full = list(index)
     for p, ix in zip(pos, arrays):
         full[p] = ix
-    return x[tuple(full)]
+    if not all(_scalar_int(ix) for ix in arrays) or any(i is None or i is Ellipsis
+                                                       for i in full):
+        return x[tuple(full)]
+    dim = 0
+    for ix in full:
+        if isinstance(ix, torch.Tensor):
+            x = x[(slice(None),) * dim + (ix.reshape(1),)].squeeze(dim)
+        elif isinstance(ix, slice):
+            x = x[(slice(None),) * dim + (ix,)]
+            dim += 1
+        else:
+            x = x.select(dim, ix)
+    return x
 
 
 class Node:
@@ -292,14 +323,17 @@ class Node:
 
     def __getitem__(self, idx):
         if isinstance(idx, _INDEX_ARRAYS):
-            return apply(structural(lambda x, ix: x[ix], "an index"), self, idx)
+            # an array or random index: no marginal (index None)
+            return apply(structural(lambda x, ix: _index_by(x, ix), "an index", index=None),
+                         self, idx)
         if isinstance(idx, tuple):
             # the arrays of a tuple index (a[county, 0]) become graph
             # inputs too, so they move to the device with the model
             pos = [i for i, ix in enumerate(idx) if isinstance(ix, _INDEX_ARRAYS)]
             if pos:
                 return apply(_tuple_index, self, *[idx[i] for i in pos], index=idx, pos=pos)
-        return apply(structural(lambda x: x[idx], "an index"), self)
+        # a static basic index: the marginal of the selected components
+        return apply(structural(lambda x: x[idx], "an index", index=(idx,)), self)
 
     @staticmethod
     def _operand_ok(o):

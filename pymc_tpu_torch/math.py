@@ -214,8 +214,8 @@ def exprel(x):
 
 # reductions / linalg
 def sum(x, axis=None, keepdims=False):  # noqa: A001
-    return _call(structural(lambda v: _reduce(torch.sum, v, axis, keepdims), "a reduction"),
-                 (x,))
+    return _call(structural(lambda v: _reduce(torch.sum, v, axis, keepdims), "a reduction",
+                            op="sum", axis=axis, keepdims=keepdims), (x,))
 
 
 def prod(x, axis=None, keepdims=False):
@@ -228,12 +228,12 @@ def mean(x, axis=None, keepdims=False):
 
 def max(x, axis=None, keepdims=False):  # noqa: A001
     return _call(structural(lambda v: torch.amax(v, dim=_axes(v, axis), keepdim=keepdims),
-                            "a reduction"), (x,))
+                            "a reduction", op="max", axis=axis, keepdims=keepdims), (x,))
 
 
 def min(x, axis=None, keepdims=False):  # noqa: A001
     return _call(structural(lambda v: torch.amin(v, dim=_axes(v, axis), keepdim=keepdims),
-                            "a reduction"), (x,))
+                            "a reduction", op="min", axis=axis, keepdims=keepdims), (x,))
 
 
 maximum = _wrap(torch.maximum)
@@ -385,11 +385,13 @@ def clip(x, lo, hi):
 
 
 def concatenate(xs, axis=0):
-    return _call(structural(lambda *vs: torch.cat(vs, dim=axis), "a join"), tuple(xs))
+    return _call(structural(lambda *vs: torch.cat(vs, dim=axis), "a join",
+                            join=("concatenate", axis)), tuple(xs))
 
 
 def stack(xs, axis=0):
-    return _call(structural(lambda *vs: torch.stack(vs, dim=axis), "a join"), tuple(xs))
+    return _call(structural(lambda *vs: torch.stack(vs, dim=axis), "a join",
+                            join=("stack", axis)), tuple(xs))
 
 
 def full(shape, fill_value, dtype=None):
@@ -415,8 +417,8 @@ or_ = _wrap(torch.logical_or)
 
 def cumsum(x, axis=None):
     return _call(structural(lambda v: torch.cumsum(v.reshape(-1) if axis is None else v,
-                                                   0 if axis is None else axis), "a cumsum"),
-                 (x,))
+                                                   0 if axis is None else axis), "a cumsum",
+                            axis=axis), (x,))
 
 
 def cumprod(x, axis=None):
@@ -438,7 +440,11 @@ def floatX(x):
     return _call(lambda v: v.to(_floatX(v.device)), (x,))
 
 
-# numpy-style passthroughs (reference pymc/math.py re-exports them)
+# numpy-style passthroughs (reference pymc/math.py re-exports them); a layout
+# tag holds (kind, axes): "reshape" for the C-order reshape family, else the
+# permutation's own arguments
+_RESHAPE = ("reshape", None)
+
 def all(x, axis=None):  # noqa: A001
     return _call(lambda v: torch.all(v) if axis is None else torch.all(v, dim=axis), (x,))
 
@@ -448,11 +454,11 @@ def any(x, axis=None):  # noqa: A001
 
 
 def argmax(x, axis=None):
-    return _call(structural(lambda v: torch.argmax(v, dim=axis), "an argmax"), (x,))
+    return _call(structural(lambda v: torch.argmax(v, dim=axis), "an argmax", axis=axis), (x,))
 
 
 def argmin(x, axis=None):
-    return _call(structural(lambda v: torch.argmin(v, dim=axis), "an argmin"), (x,))
+    return _call(structural(lambda v: torch.argmin(v, dim=axis), "an argmin", axis=axis), (x,))
 
 
 def argsort(x, axis=-1):
@@ -460,8 +466,8 @@ def argsort(x, axis=-1):
 
 
 def broadcast_to(x, shape):
-    return _call(structural(lambda v: torch.broadcast_to(v, tuple(shape)), "a broadcast"),
-                 (x,))
+    return _call(structural(lambda v: torch.broadcast_to(v, tuple(shape)), "a broadcast",
+                            shape=tuple(shape)), (x,))
 
 
 diag = _wrap(torch.diag)
@@ -475,15 +481,16 @@ def expand_dims(x, axis):
             v = v.unsqueeze(a)
         return v
 
-    return _call(structural(_expand, "a layout"), (x,))
+    return _call(structural(_expand, "a layout", layout=_RESHAPE), (x,))
 
 
 def flatten(x):
-    return _call(structural(lambda v: v.reshape(-1), "a layout"), (x,))
+    return _call(structural(lambda v: v.reshape(-1), "a layout", layout=_RESHAPE), (x,))
 
 
 def moveaxis(x, source, destination):
-    return _call(structural(lambda v: torch.movedim(v, source, destination), "a layout"), (x,))
+    return _call(structural(lambda v: torch.movedim(v, source, destination), "a layout",
+                            layout=("moveaxis", (source, destination))), (x,))
 
 
 def repeat(x, repeats, axis=None):
@@ -492,7 +499,8 @@ def repeat(x, repeats, axis=None):
 
 def reshape(x, shape):
     return _call(structural(lambda v: torch.reshape(v, tuple(shape) if not isinstance(shape, int)
-                                                    else (shape,)), "a layout"), (x,))
+                                                    else (shape,)), "a layout",
+                            layout=_RESHAPE), (x,))
 
 
 def sort(x, axis=-1):
@@ -504,7 +512,7 @@ sqr = square
 
 def squeeze(x, axis=None):
     return _call(structural(lambda v: torch.squeeze(v) if axis is None else torch.squeeze(v, axis),
-                            "a layout"), (x,))
+                            "a layout", layout=_RESHAPE), (x,))
 
 
 def std(x, axis=None, keepdims=False):
@@ -518,7 +526,8 @@ def var(x, axis=None, keepdims=False):
 
 
 def swapaxes(x, axis1, axis2):
-    return _call(structural(lambda v: torch.swapaxes(v, axis1, axis2), "a layout"), (x,))
+    return _call(structural(lambda v: torch.swapaxes(v, axis1, axis2), "a layout",
+                            layout=("swapaxes", (axis1, axis2))), (x,))
 
 
 def take(x, indices, axis=None):
@@ -547,7 +556,8 @@ trace = _wrap(_trace)
 
 def transpose(x, axes=None):
     return _call(structural(lambda v: v.permute(tuple(reversed(range(v.ndim))) if axes is None
-                                                else tuple(axes)), "a layout"), (x,))
+                                                else tuple(axes)), "a layout",
+                            layout=("transpose", None if axes is None else tuple(axes))), (x,))
 
 
 tril = _wrap(torch.tril)

@@ -64,7 +64,9 @@ __all__ = [
     "lkj_radon_scalars",
     "lkj_corr_prior_model", "LKJ_CORR_SAMPLE_KWARGS", "MULTIVARIATE_MODELS",
     "multivariate_model", "MV_RING", "MV_ROWCOV", "MV_COLCOV",
-    "survival_data", "survival_model", "SURVIVAL_SAMPLE_KWARGS", "SURVIVAL_SMOKE_KWARGS",
+    "survival_data", "survival_model", "survival_minimum_model", "STRUCTURAL_MODELS",
+    "structural_model", "SURVIVAL_SAMPLE_KWARGS",
+    "SURVIVAL_SMOKE_KWARGS",
     "SURVIVAL_SCALARS", "SURVIVAL_TRUTH",
     "stochastic_volatility_data", "stochastic_volatility_model", "SV_SAMPLE_KWARGS",
     "SV_SMOKE_KWARGS", "SV_SCALARS", "TIMESERIES_MODELS", "timeseries_model", "TS_COV",
@@ -723,6 +725,25 @@ def survival_model(pm=None):
     return model
 
 
+def survival_minimum_model(pm=None):
+    """`survival_model` with its likelihood written as an expression: a
+    CustomDist whose `dist=` returns minimum(Weibull(alpha, lam), t_end),
+    which the logprob engine derives as Censored(Weibull, upper=t_end), so
+    its density is survival_model's. 3 free values."""
+    if pm is None:
+        import pymc_tpu_torch as pm
+    x, observed_t, _, t_end = survival_data()
+    with pm.Model() as model:
+        alpha = pm.Gamma("alpha", alpha=2.0, beta=1.0)
+        b0 = pm.Normal("b0", 0.0, 2.0)
+        b1 = pm.Normal("b1", 0.0, 2.0)
+        lam = pm.math.exp(b0 + b1 * x)
+        pm.CustomDist("t", alpha, lam, observed=observed_t,
+                      dist=lambda a, l, size: pm.math.minimum(pm.Weibull.dist(a, l, size=size),
+                                                              t_end))
+    return model
+
+
 # examples/stochastic_volatility.py samples 4 chains, tune 1000, draws 1000,
 # seed 1, at target_accept 0.95
 SV_SAMPLE_KWARGS = dict(chains=4, tune=1000, draws=1000, random_seed=1, target_accept=0.95)
@@ -1094,4 +1115,58 @@ def slice_model(name, pm=None):
         import pymc_tpu_torch as pm
     with pm.Model() as model:
         SLICE_MODELS[name](pm)
+    return model
+
+
+def _structural_data(name):
+    """Seeded observations of `structural_model(name)`."""
+    rng = np.random.default_rng(18)
+    if name == "censoring":
+        return np.clip(rng.normal(0.3, 1.0, 40), -1.0, 1.5)
+    if name == "join":
+        x = rng.normal(0.3, 1.0, 20)
+        return np.stack([x, rng.normal(x, 0.5)])
+    if name == "switch mixture":
+        return np.where(STRUCTURAL_MASK, rng.normal(0.3, 1.0, 30), rng.exponential(0.5, 30))
+    return STRUCTURAL_A @ rng.normal(0.3, 1.0, (2, 10))
+
+
+# the switch mixture's RV-free condition and the matmul's matrix
+STRUCTURAL_MASK = np.random.default_rng(19).random(30) < 0.4
+STRUCTURAL_A = np.array([[2.0, 0.5], [0.3, 1.5]])
+
+
+def _structural_dist(pm, name):
+    """The `dist=` of `structural_model(name)`: a structural form of
+    `.dist()` objects in mu and s."""
+    if name == "censoring":
+        return lambda m, s, size: pm.math.clip(pm.Normal.dist(m, s, size=40), -1.0, 1.5)
+    if name == "join":
+        def join(m, s, size):
+            first = pm.Normal.dist(m, s, size=20).to_node()
+            return pm.math.stack([first, pm.Normal.dist(first, 0.5)])
+
+        return join
+    if name == "switch mixture":
+        return lambda m, s, size: pm.math.where(STRUCTURAL_MASK, pm.Normal.dist(m, s, size=30),
+                                                pm.Exponential.dist(2.0, size=30))
+    return lambda m, s, size: STRUCTURAL_A @ pm.Normal.dist(m, s, size=(2, 10))
+
+
+# chip_smoke.py phase 18b's models: a likelihood of each of these forms
+STRUCTURAL_MODELS = ("censoring", "join", "switch mixture", "matmul")
+
+
+def structural_model(name, pm=None):
+    """mu ~ Normal(0, 1), s ~ HalfNormal(1); y ~ CustomDist(mu, s, dist=)
+    of the structural form `name` of STRUCTURAL_MODELS (a clip, a stack
+    with a dependent component, a switch mixture, A @ X) on seeded data. 2
+    free values."""
+    if pm is None:
+        import pymc_tpu_torch as pm
+    with pm.Model() as model:
+        mu = pm.Normal("mu", 0.0, 1.0)
+        s = pm.HalfNormal("s", 1.0)
+        pm.CustomDist("y", mu, s, dist=_structural_dist(pm, name),
+                      observed=_structural_data(name))
     return model

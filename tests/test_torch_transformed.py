@@ -13,8 +13,7 @@ logp, logcdf, logccdf and icdf are held to pymc_tpu's at RTOL (looser,
 SPECIAL_RTOL, where a link goes through erfinv or ndtri, whose float64
 implementations differ in the last digits), and gradients by autograd to
 jax.grad. The forms pymc_tpu rejects raise TypeError in both; the
-structural forms it derives (ROADMAP item 6b) raise NotImplementedError in
-the port.
+structural forms it derives (ROADMAP item 6b) match its logp.
 
 Marked divergence (ROADMAP §3): a value outside the image of a chain gets
 log F = -inf and log S = 0 below the image (mirrored above it) in the
@@ -413,33 +412,43 @@ def test_bare_and_constant_expressions_raise_type_error():
 
 
 def _structural(pm):
-    """Structural forms pymc_tpu derives (ROADMAP item 6b)."""
+    """Structural forms (ROADMAP item 6b), each with values of its shape
+    (two rows where the form has a batch), all inside its support."""
     m, n = pm.math, pm.Normal.dist
+    grid = np.array([[0.4, -1.2, 2.0], [1.1, 0.3, -0.7]])
     return {
-        "sum": lambda: m.sum(n(0, 1, size=3)), "max": lambda: m.max(n(0, 1, size=3)),
-        "Node.min": lambda: n(0, 1, size=3).to_node().min(),
-        "stack": lambda: m.stack([n(0, 1), n(1, 2)]),
-        "concatenate": lambda: m.concatenate([n(0, 1, size=2), n(1, 2, size=1)]),
-        "cumsum": lambda: m.cumsum(n(0, 1, size=3)),
-        "argmax": lambda: m.argmax(pm.Gumbel.dist(0, 1, size=3)),
-        "index": lambda: n(0, 1, size=3)[0], "exp(index)": lambda: m.exp(n(0, 1, size=3)[1]),
-        "reshape": lambda: n(0, 1, size=4).to_node().reshape((2, 2)),
-        "transpose": lambda: m.transpose(n(0, 1, size=(2, 3))),
-        "astype": lambda: pm.Poisson.dist(3.0).to_node().astype("float64"),
-        "broadcast_to": lambda: m.broadcast_to(n(0, 1), (3,)),
-        "matmul": lambda: (2.0 * np.eye(2)) @ n(0, 1, size=2),
-        "clip": lambda: m.clip(n(0, 1), -1.0, 1.0), "maximum": lambda: m.maximum(n(0, 1), 0.0),
-        "round": lambda: m.round(n(0, 1)), "floor": lambda: m.floor(n(0, 1)),
-        "switch mixture": lambda: m.where(np.array([True, False]), n(0, 1, size=2),
-                                          n(5, 1, size=2)),
+        "sum": (lambda: m.sum(n(0, 1, size=3)), [0.5, -1.0, 2.5]),
+        "max": (lambda: m.max(n(0, 1, size=3)), [0.3, 1.2, -0.4]),
+        "Node.min": (lambda: n(0, 1, size=3).to_node().min(), [0.3, -1.2, -0.4]),
+        "stack": (lambda: m.stack([n(0, 1), n(1, 2)]), grid[:, :2]),
+        "concatenate": (lambda: m.concatenate([n(0, 1, size=2), n(1, 2, size=1)]), grid),
+        "cumsum": (lambda: m.cumsum(n(0, 1, size=3)), grid),
+        "argmax": (lambda: m.argmax(pm.Gumbel.dist(np.array([0.0, 0.5, 1.0]), 1.0)),
+                   [0, 1, 2]),
+        "index": (lambda: n(0, 1, size=3)[0], [0.5, -1.0, 2.5]),
+        "exp(index)": (lambda: m.exp(n(0, 1, size=3)[1]), [0.5, 1.0, 2.5]),
+        "reshape": (lambda: n(0, 1, size=4).to_node().reshape((2, 2)), grid[:, :2]),
+        "transpose": (lambda: m.transpose(n(np.arange(6.0).reshape(2, 3), 1)),
+                      np.resize(grid, (3, 2))),
+        "astype": (lambda: pm.Poisson.dist(3.0).to_node().astype("float64"), [0.0, 2.0, 5.0]),
+        "broadcast_to": (lambda: m.broadcast_to(n(0, 1), (3,)), [0.5, 0.5, 0.5]),
+        "matmul": (lambda: np.array([[2.0, 0.5], [0.3, 1.5]]) @ n(0, 1, size=2), grid[:, :2]),
+        "clip": (lambda: m.clip(n(0, 1), -1.0, 1.0), [-1.0, 0.3, 1.0]),
+        "maximum": (lambda: m.maximum(n(0, 1), 0.0), [0.0, 0.3, 1.7]),
+        "round": (lambda: m.round(n(0, 1)), [-2.0, 0.0, 1.0]),
+        "floor": (lambda: m.floor(n(0, 1)), [-2.0, 0.0, 1.0]),
+        "switch mixture": (lambda: m.where(np.array([True, False]), n(0, 1, size=2),
+                                           n(5, 1, size=2)), grid[:, :2] + 4.0),
     }
 
 
 @pytest.mark.parametrize("name", list(_structural(pmt)))
-def test_structural_forms_raise_item_6b(name):
-    assert derive_j(_structural(pmj)[name]()) is not None
-    with pytest.raises(NotImplementedError, match="ROADMAP item 6b"):
-        derive_t(_structural(pmt)[name]())
+def test_structural_forms_match_pymc_tpu(name):
+    """Each structural form's logp is pymc_tpu's (ROADMAP item 6b is
+    ported; tests/test_torch_structural.py holds every form in depth)."""
+    (build_t, values), (build_j, _) = _structural(pmt)[name], _structural(pmj)[name]
+    v = np.asarray(values, dtype=float)
+    _close(pmt.logp(build_t(), v), pmj.logp(build_j(), v), RTOL)
 
 
 def test_one_dist_object_is_one_leaf():
